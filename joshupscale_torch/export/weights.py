@@ -1,0 +1,67 @@
+"""Carry parameters across from the reference's flat ``.npz`` form.
+
+The reference flattens its param trees to dotted paths
+(``flow.block_3.conv_1.kernel`` ...; ``flatten_params`` /
+``save_params_npz`` in ``joshupscale_tpu/export/importer.py``).
+``from_flat_numpy`` rebuilds the nested dict and converts layouts to the
+port's:
+
+- conv kernels HWIO ``(kh, kw, I, O)`` -> OHWI ``(O, kh, kw, I)``
+  (see ``nn/layers.py``);
+- deconv kernels ``(2, 2, O, I)`` (under ``conv_trans_*``) -> the 1x1
+  product ``(I, 4*O)`` the s2d tail multiplies by;
+- everything else (BN stats, biases, fade counters) as float32 tensors.
+
+Numpy only: no JAX is needed to read a reference checkpoint.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from joshupscale_torch.models.generator import deconv_matrix
+
+
+def _convert(path: str, arr: np.ndarray) -> torch.Tensor:
+    parts = path.split(".")
+    leaf = parts[-1]
+    layer = parts[-2] if len(parts) > 1 else ""
+    if leaf in ("kernel_q", "kernel_scale", "act_scale"):
+        raise NotImplementedError(
+            f"{path}: int8-quantized params are not ported yet; they wait "
+            f"for the export/quantize slice")
+    arr = np.asarray(arr)
+    if leaf == "kernel" and arr.ndim == 4:
+        if layer.startswith("conv_trans"):
+            arr = deconv_matrix(arr)
+        else:
+            arr = np.ascontiguousarray(arr.transpose(3, 0, 1, 2))
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def from_flat_numpy(flat: Dict[str, np.ndarray]):
+    """Dotted-path numpy dict -> the port's nested param dict."""
+    tree: dict = {}
+    for path, arr in flat.items():
+        node = tree
+        keys = path.split(".")
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _convert(path, arr)
+    return tree
+
+
+def load_params_npz(path: str, prefix: str = ""):
+    """Load a flat ``.npz`` (optionally its dotted ``prefix`` subtree)."""
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    if prefix:
+        dot = prefix + "."
+        flat = {k[len(dot):]: v for k, v in flat.items()
+                if k.startswith(dot)}
+        if not flat:
+            raise KeyError(f"no keys under prefix {prefix!r} in {path}")
+    return from_flat_numpy(flat)

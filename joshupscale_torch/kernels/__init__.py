@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
+
+- ``resblock.resblock_conv3x3`` (K1): fused res-block conv.
+- ``display.d2s_display_u8`` (K2): depth_to_space(4) + uint8 display.
+
+Nothing is compiled at import; ``_build`` runs ``nvcc`` at first launch.
+"""
