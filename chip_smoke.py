@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
-    python3 chip_smoke.py [--frames 8] [--profile DIR]
+    python3 chip_smoke.py [--seed 0] [--profile DIR]
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc``, holds
 each against its plain PyTorch version on the card, drives the quality
 tier (flow-resnet 64x10 + generator-resnet 64x24, bf16, 270x480 ->
 1080x1920, seeded random weights) through ``Engine.process`` and checks
-that every frame went through the kernels, holds the first frames
-against the same engine run on the CPU (plain versions), and times the
-frame, the step and each kernel with CUDA events.
+that every frame went through the kernels and that a step makes no
+synchronising call, holds the first frames against the same engine run
+on the CPU (plain versions), and times the frame, the step and each
+kernel with CUDA events.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
@@ -39,6 +40,9 @@ PEAK_BF16_FLOPS = 989e12
 
 H, W = 270, 480
 K1_PER_FRAME = 2 * (10 + 24)
+FRAMES = 8  # driven through Engine.process, launches counted
+REF_FRAMES = 3  # of those, held against the CPU run
+TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
 
 
 def log(msg: str) -> None:
@@ -144,10 +148,12 @@ def phase_k1(torch, rng, device):
 
 
 def phase_k2(torch, rng, device):
-    """K2 vs its plain version, bit-exact."""
+    """K2 vs its plain version, bit-exact; returns the largest |got - ref|
+    over the cases (0 when they agree)."""
     from joshupscale_torch.kernels.display import (
         d2s_display_u8, d2s_display_u8_plain)
 
+    worst = 0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in ((1, H, W, 48), (2, 1, H, W, 48)):
             x = torch.from_numpy(np.clip(
@@ -160,11 +166,13 @@ def phase_k2(torch, rng, device):
                 raise AssertionError("K2 launch counter did not move")
             ref = d2s_display_u8_plain(
                 x.reshape((-1,) + tuple(x.shape[-3:]))).reshape(got.shape)
+            worst = max(worst, int((got.int() - ref.int()).abs().max()))
             if not torch.equal(got, ref):
                 n_bad = int((got != ref).sum())
                 raise AssertionError(f"K2 {dtype} {shape}: {n_bad} values "
                                      f"differ from the plain version")
             log(f"K2 {dtype} {shape} -> {tuple(got.shape)} u8: bit-exact ok")
+    return float(worst)
 
 
 def quality_config() -> dict:
@@ -220,17 +228,17 @@ def frames_for(t: int, seed: int) -> np.ndarray:
     return np.stack(out)
 
 
-def phase_main(torch, args, device):
+def phase_main(torch, seed, device):
     """The main path: Engine.process on the quality tier at full width."""
     from joshupscale_torch.kernels.display import d2s_display_u8
     from joshupscale_torch.kernels.resblock import resblock_conv3x3
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import Engine
 
-    built = create_models(quality_config(), seed=args.seed)["inference"]
-    params = seeded_params(torch, built, args.seed)
+    built = create_models(quality_config(), seed=seed)["inference"]
+    params = seeded_params(torch, built, seed)
     engine = Engine(built.obj, params, device=device)
-    frames = frames_for(args.frames, args.seed)
+    frames = frames_for(FRAMES, seed)
 
     resblock_conv3x3.launches = 0
     d2s_display_u8.launches = 0
@@ -252,10 +260,22 @@ def phase_main(torch, args, device):
     if inside < 0.5:
         raise AssertionError("output mostly clipped: the check is trivial")
 
+    # A step only enqueues work: any host<->device copy or other
+    # synchronising call inside it raises here.
+    dev_frame = torch.from_numpy(frames[0][None]).to(device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.display(engine.step(dev_frame))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("main path: a step and its display make no synchronising call "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+
     # The same engine on the CPU (plain versions), same params and frames.
-    n_ref = args.ref_frames
     cpu = Engine(built.obj, params, device="cpu")
-    for i in range(n_ref):
+    for i in range(REF_FRAMES):
         ref = cpu.process(frames[i]).astype(np.int32)
         diff = np.abs(outs[i].astype(np.int32) - ref)
         mean_d, share = float(diff.mean()), float((diff > 2).mean())
@@ -270,7 +290,7 @@ def phase_main(torch, args, device):
     return engine, frames, k1, k2
 
 
-def phase_times(torch, args, engine, frames, device):
+def phase_times(torch, engine, frames, device):
     """Frame, step and kernel times on the card (CUDA events, medians)."""
     import torch.nn.functional as F
 
@@ -282,7 +302,7 @@ def phase_times(torch, args, engine, frames, device):
     torch.backends.cudnn.allow_tf32 = False
     # Frame latency as a host sees it: blocking process(), copies included.
     lat = []
-    for i in range(args.timed_frames):
+    for i in range(TIMED_FRAMES):
         t0 = time.perf_counter()
         engine.process(frames[i % len(frames)])
         lat.append((time.perf_counter() - t0) * 1e3)
@@ -405,9 +425,6 @@ def profile(torch, engine, frames, device, out_dir):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--ref-frames", type=int, default=3)
-    ap.add_argument("--timed-frames", type=int, default=53)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", default=None)
     args = ap.parse_args()
@@ -434,9 +451,10 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     k1_err = phase_k1(torch, rng, device)
-    phase_k2(torch, rng, device)
-    engine, frames, k1_launches, k2_launches = phase_main(torch, args, device)
-    times = phase_times(torch, args, engine, frames, device)
+    k2_err = phase_k2(torch, rng, device)
+    engine, frames, k1_launches, k2_launches = phase_main(
+        torch, args.seed, device)
+    times = phase_times(torch, engine, frames, device)
     if args.profile:
         profile(torch, engine, frames, device, args.profile)
 
@@ -455,7 +473,7 @@ def main() -> int:
         {"name": "d2s_display_u8", "route": "cuda",
          "source": "joshupscale_torch/csrc/display_u8.cu",
          "replaces": "joshupscale_tpu/ops/display.py:35",
-         "launches": k2_launches, "max_abs_err": 0.0,
+         "launches": k2_launches, "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None},
     ]

@@ -1,15 +1,17 @@
-"""Shared model blocks: conv+BN, res blocks, the inference fade scale.
+"""Shared model blocks: conv+BN folds, res blocks, the inference fade scale.
 
 Port of the inference subset of ``joshupscale_tpu/models/common.py``.
 Parameter trees mirror the reference's Keras layer names (``conv_1``,
 ``bn_1``, ``block_3``...).
 
-A res block runs as two launches of the res-block conv (K1,
-``kernels/resblock.py``): ``conv_1`` with the bn_1 epilogue and act, then
-``conv_2`` with the bn_2 epilogue (x the fade scale), the residual and
-act.  ``fold_res_block`` turns a block's raw params into what K1 takes;
-``prepare_res_blocks`` does it once ahead of serving so a frame does not
-redo it.
+Serving runs on folded params, made once when an engine is built
+(``InferenceModel.prepare_params``), so a frame redoes no fold.
+``fold_conv_bn`` is the fold half of the reference's ``conv_bn`` (the
+conv half is ``nn.layers.conv2d``); ``prepare_res_blocks`` folds every
+res block into what the res-block conv (K1, ``kernels/resblock.py``)
+takes.  A res block then runs as two K1 launches: ``conv_1`` with the
+bn_1 epilogue and act, then ``conv_2`` with the bn_2 epilogue (x the
+fade scale), the residual and act.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from joshupscale_torch.kernels.resblock import resblock_conv3x3
 from joshupscale_torch.nn.layers import (
     activation_spec,
     batch_norm_init,
-    conv2d,
     conv2d_init,
     fold_bn,
     require_float_kernel,
@@ -54,17 +55,17 @@ def res_block_init(rng: np.random.Generator, num_filters: int,
     return params
 
 
-def conv_bn(conv_params, bn_params, x: torch.Tensor) -> torch.Tensor:
-    """conv2d followed by inference batch norm, folded into the conv
-    (``kernel * inv`` per output channel + an offset bias), as the
-    reference does at inference."""
+def fold_conv_bn(conv_params, bn_params, dtype: torch.dtype):
+    """A conv followed by inference batch norm as one conv's params for
+    ``conv2d``: ``kernel * inv`` per output channel and an offset bias
+    (plus the conv's own bias times ``inv``), cast to ``dtype`` -- the
+    fold the reference's ``conv_bn`` does at inference."""
     require_float_kernel(conv_params)
     inv, offset = fold_bn(bn_params)
-    folded = {"kernel": conv_params["kernel"].float() * inv.view(-1, 1, 1, 1),
-              "bias": offset}
     if "bias" in conv_params:
-        folded["bias"] = offset + conv_params["bias"].float() * inv
-    return conv2d(folded, x)
+        offset = offset + conv_params["bias"].float() * inv
+    kernel = conv_params["kernel"].float() * inv.view(-1, 1, 1, 1)
+    return {"kernel": kernel.to(dtype), "bias": offset.to(dtype)}
 
 
 def _fold_conv(conv_params, bn_params, dtype, fade=None):
@@ -82,10 +83,7 @@ def _fold_conv(conv_params, bn_params, dtype, fade=None):
 def fold_res_block(params, dtype: torch.dtype):
     """Raw res-block params -> ``{"conv_1": {kernel, scale, offset},
     "conv_2": {...}}`` in K1's form (kernel OHWI in ``dtype``, scale and
-    offset float32 with bn, conv bias and fade folded in).  A folded
-    block is returned as it is."""
-    if "scale" in params["conv_1"]:
-        return params
+    offset float32 with bn, conv bias and fade folded in)."""
     fade = fade_scale(params["fade"]) if "fade" in params else None
     return {
         "conv_1": _fold_conv(params["conv_1"], params["bn_1"], dtype),
@@ -94,16 +92,16 @@ def fold_res_block(params, dtype: torch.dtype):
 
 
 def prepare_res_blocks(params, dtype: torch.dtype):
-    """A copy of a net's param dict with every ``block_*`` folded."""
-    return {k: (fold_res_block(v, dtype) if k.startswith("block_") else v)
-            for k, v in params.items()}
+    """Every ``block_*`` of a net's params, folded by ``fold_res_block``."""
+    return {k: fold_res_block(v, dtype) for k, v in params.items()
+            if k.startswith("block_")}
 
 
 def res_block_apply(params, x: torch.Tensor, activation) -> torch.Tensor:
-    """conv-bn-act-conv-bn(-fade)-add-act residual block: two K1 calls."""
+    """conv-bn-act-conv-bn(-fade)-add-act residual block: two K1 calls
+    on a block folded by ``fold_res_block``."""
     act, alpha = activation_spec(activation)
-    p = fold_res_block(params, x.dtype)
-    c1, c2 = p["conv_1"], p["conv_2"]
+    c1, c2 = params["conv_1"], params["conv_2"]
     y = resblock_conv3x3(x, c1["kernel"], c1["scale"], c1["offset"],
                          None, act, alpha)
     return resblock_conv3x3(y, c2["kernel"], c2["scale"], c2["offset"],
@@ -112,7 +110,7 @@ def res_block_apply(params, x: torch.Tensor, activation) -> torch.Tensor:
 
 def res_blocks_apply(params, names, x: torch.Tensor,
                      activation) -> torch.Tensor:
-    """Run consecutive res blocks."""
+    """Run consecutive folded res blocks (see ``prepare_res_blocks``)."""
     out = x.contiguous()
     for name in names:
         out = res_block_apply(params[name], out, activation)

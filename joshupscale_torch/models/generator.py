@@ -6,6 +6,10 @@ concat(frame, s2d(pre_warp)) -> conv -> res blocks -> s2d tail
 (deconv1 as a 1x1 product to (dy1, dx1, 32) channels, tiled bn_2 + act,
 deconv2 as a block-diagonal 1x1 product in depth_to_space(4) channel
 order, tanh) + the TF1-bilinear x4 skip as phase channels -> clip.
+``generator_resnet_apply`` takes the serving params that
+``prepare_generator_resnet`` makes once from the raw ones: folds, the
+tiled bn_2, the block-diagonal deconv2 product and the bilinear phase
+kernel are constants of the step, built ahead of it.
 """
 
 from __future__ import annotations
@@ -16,19 +20,21 @@ import numpy as np
 import torch
 
 from joshupscale_torch.models.common import (
-    conv_bn,
+    fold_conv_bn,
+    prepare_res_blocks,
     res_block_init,
     res_blocks_apply,
 )
 from joshupscale_torch.nn.layers import (
-    batch_norm,
     batch_norm_init,
+    conv2d,
     conv2d_init,
+    fold_bn,
     get_activation,
     glorot_uniform,
     require_float_kernel,
 )
-from joshupscale_torch.ops.resize import _upscale_bilinear_conv
+from joshupscale_torch.ops.resize import phase_kernel, phase_upscale
 
 
 def deconv_matrix(kernel: np.ndarray) -> np.ndarray:
@@ -80,6 +86,7 @@ def generator_resnet_apply(params, frame: torch.Tensor,
 
     With ``s2d_output`` (the serving form) ``pre_warp`` is taken in s2d
     form (N, H, W, 48) and the output is s2d too (N, H, W, 48).
+    ``params`` as ``prepare_generator_resnet`` gives them.
     """
     if pre_warp is None:
         raise NotImplementedError(
@@ -92,7 +99,7 @@ def generator_resnet_apply(params, frame: torch.Tensor,
     act = get_activation(activation)
     num_blocks = sum(1 for k in params if k.startswith("block_"))
     inp = torch.cat([frame, pre_warp], dim=-1)
-    out = act(conv_bn(params["conv_1"], params["bn_1"], inp))
+    out = act(conv2d(params["conv_1"], inp))
     out = res_blocks_apply(
         params, [f"block_{i + 1}" for i in range(num_blocks)], out,
         activation)
@@ -123,22 +130,47 @@ def _block_diag_deconv2(w: torch.Tensor) -> torch.Tensor:
     return w2.reshape(4 * mid, 16 * out_ch)
 
 
+def prepare_generator_resnet(params, dtype: torch.dtype):
+    """Raw params -> serving params in ``dtype``: ``conv_1`` with
+    ``bn_1`` folded in, every res block folded, and the s2d tail's
+    constants -- deconv1's product and bias, bn_2 tiled over deconv1's
+    4 groups as a scale and offset, deconv2 as the block-diagonal
+    product and bias in d2s4 order, and the x4 bilinear phase kernel."""
+    ct1, ct2 = params["conv_trans_1"], params["conv_trans_2"]
+    require_float_kernel(ct1)
+    require_float_kernel(ct2)
+    scale, offset = fold_bn(params["bn_2"])
+    tail_1 = {"kernel": ct1["kernel"].to(dtype)}
+    if "bias" in ct1:
+        tail_1["bias"] = ct1["bias"].repeat(4).to(dtype)
+    tail_2 = {"kernel": _block_diag_deconv2(ct2["kernel"]).to(dtype)}
+    if "bias" in ct2:
+        tail_2["bias"] = ct2["bias"].repeat(16).to(dtype)
+    return {
+        **prepare_res_blocks(params, dtype),
+        "conv_1": fold_conv_bn(params["conv_1"], params["bn_1"], dtype),
+        "conv_trans_1": tail_1,
+        "bn_2": {"scale": scale.repeat(4).to(dtype),
+                 "offset": offset.repeat(4).to(dtype)},
+        "conv_trans_2": tail_2,
+        "skip": phase_kernel(4, 3, dtype, ct1["kernel"].device),
+    }
+
+
 def _tail_s2d(params, frame: torch.Tensor, out: torch.Tensor,
               act) -> torch.Tensor:
     """Generator tail in space-to-depth form (see module docstring);
     equal to deconv2x -> BN -> act -> deconv2x -> tanh -> + bilinear4
     -> clip followed by space_to_depth(4)."""
-    ct1, ct2 = params["conv_trans_1"], params["conv_trans_2"]
-    require_float_kernel(ct1)
-    require_float_kernel(ct2)
-    x = torch.matmul(out, ct1["kernel"].to(out.dtype))
+    ct1, bn, ct2 = (params["conv_trans_1"], params["bn_2"],
+                    params["conv_trans_2"])
+    x = torch.matmul(out, ct1["kernel"])
     if "bias" in ct1:
-        x = x + ct1["bias"].repeat(4).to(x.dtype)
-    bn_tiled = {k: v.repeat(4) for k, v in params["bn_2"].items()}
-    x = act(batch_norm(bn_tiled, x))
-    x = torch.matmul(x, _block_diag_deconv2(ct2["kernel"]).to(x.dtype))
+        x = x + ct1["bias"]
+    x = act(x * bn["scale"] + bn["offset"])
+    x = torch.matmul(x, ct2["kernel"])
     if "bias" in ct2:
-        x = x + ct2["bias"].repeat(16).to(x.dtype)
+        x = x + ct2["bias"]
     x = torch.tanh(x)
-    upscaled = _upscale_bilinear_conv(frame, 4, skip_d2s=True)
+    upscaled = phase_upscale(frame, params["skip"])
     return torch.clamp(upscaled + x, -0.5, 0.5)

@@ -20,7 +20,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from joshupscale_torch.models.common import prepare_res_blocks
+from joshupscale_torch.models.fnet import prepare_flow_resnet
+from joshupscale_torch.models.generator import prepare_generator_resnet
 from joshupscale_torch.ops.image import postprocess, preprocess
 from joshupscale_torch.ops.space_depth import depth_to_space
 from joshupscale_torch.ops.warp import dense_image_warp_s2d
@@ -45,7 +46,8 @@ class InferenceModel:
 
     ``flow_apply(params, frames, s2d_output=True)`` and
     ``generator_apply(params, frame, pre_warp, s2d_output=True)`` are the
-    bound nets; ``compute_dtype`` is the networks' activation dtype.
+    bound nets; they take the serving params ``prepare_params`` makes.
+    ``compute_dtype`` is the networks' activation dtype.
     """
 
     flow_apply: Callable[..., torch.Tensor]
@@ -97,20 +99,26 @@ class InferenceModel:
         }
 
     def prepare_params(self, params, device) -> Dict[str, Any]:
-        """Params moved to ``device`` with every res block folded into
-        the res-block conv's form in ``compute_dtype`` -- done once,
-        ahead of serving."""
+        """Raw params -> the serving params ``apply`` takes, on
+        ``device`` in ``compute_dtype``: every fold, cast and constant
+        table of the step, made once ahead of serving, so a step copies
+        nothing from the host."""
         def to_dev(tree):
             if isinstance(tree, dict):
                 return {k: to_dev(v) for k, v in tree.items()}
             return tree.to(device)
 
-        return {name: prepare_res_blocks(to_dev(net), self.compute_dtype)
-                for name, net in params.items()}
+        cdt = self.compute_dtype
+        return {
+            "flow": prepare_flow_resnet(to_dev(params["flow"]), cdt),
+            "generator": prepare_generator_resnet(
+                to_dev(params["generator"]), cdt),
+        }
 
     def apply(self, params, cur_frame: torch.Tensor,
               state: State) -> Tuple[Dict[str, Any], State]:
-        """One recurrent step: ``(outputs, new_state)``.
+        """One recurrent step on serving params (``prepare_params``):
+        ``(outputs, new_state)``.
 
         ``outputs["output_s2d"]`` is the (N, H, W, 48) display tensor in
         s2d form.  Without ``deferred_display`` it also holds "output",

@@ -24,20 +24,27 @@ def _edge_pad_hw(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x[:, :, -1:, :]], dim=2)
 
 
-def _phase_kernel(s: int, c: int) -> np.ndarray:
-    """HWIO (2, 2, c, s*s*c): K[dy, dx, ch, (ry*s + rx)*c + ch] =
-    wy[ry, dy] * wy[rx, dx] with wy[r] = (1 - r/s, r/s)."""
+def phase_kernel(s: int, c: int, dtype: torch.dtype = torch.float32,
+                 device="cpu") -> torch.Tensor:
+    """The bilinear x``s`` phase kernel, OIHW ``(s*s*c, c, 2, 2)``: output
+    channel ``(ry*s + rx)*c + ch`` takes ``wy[ry, dy] * wy[rx, dx]`` of
+    input channel ``ch`` at tap ``(dy, dx)``, with wy[r] = (1 - r/s, r/s).
+    A constant: build it once per device and dtype."""
     r = np.arange(s, dtype=np.float64) / s
     wy = np.stack([1 - r, r], axis=1)  # (s, 2)
-    kernel = np.zeros((2, 2, c, s * s * c), np.float64)
-    for ry in range(s):
-        for rx in range(s):
-            for dy in range(2):
-                for dx in range(2):
-                    for ch in range(c):
-                        kernel[dy, dx, ch, (ry * s + rx) * c + ch] = (
-                            wy[ry, dy] * wy[rx, dx])
-    return kernel.astype(np.float32)
+    taps = np.einsum("ay,bx->abyx", wy, wy).reshape(s * s, 1, 1, 2, 2)
+    kernel = taps * np.eye(c)[None, :, :, None, None]  # (s*s, c, c, 2, 2)
+    return torch.from_numpy(
+        kernel.reshape(s * s * c, c, 2, 2).astype(np.float32)).to(
+            device, dtype)
+
+
+def phase_upscale(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Edge-pad + the 2x2 ``phase_kernel`` conv: the bilinear upscale of
+    NHWC ``x`` as s2d-form phase channels (N, H, W, s*s*C)."""
+    xp = _edge_pad_hw(x)  # (N, H+1, W+1, C)
+    out = F.conv2d(xp.permute(0, 3, 1, 2), kernel)
+    return out.permute(0, 2, 3, 1).contiguous()
 
 
 def _upscale_bilinear_conv(x: torch.Tensor, s: int,
@@ -47,11 +54,7 @@ def _upscale_bilinear_conv(x: torch.Tensor, s: int,
     ``skip_d2s=True`` returns the s2d-form phase channels
     (N, H, W, s*s*C) for consumers that stay in s2d space.
     """
-    c = x.shape[-1]
-    kernel = torch.from_numpy(_phase_kernel(s, c)).to(x.device, x.dtype)
-    xp = _edge_pad_hw(x)  # (N, H+1, W+1, C)
-    out = F.conv2d(xp.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1))
-    out = out.permute(0, 2, 3, 1).contiguous()  # (N, H, W, s*s*C)
+    out = phase_upscale(x, phase_kernel(s, x.shape[-1], x.dtype, x.device))
     if skip_d2s:
         return out
     return depth_to_space(out, s)

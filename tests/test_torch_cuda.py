@@ -113,3 +113,30 @@ def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
                       - on_cpu.process(f).astype(np.int32))
         assert diff.max() <= (1 if compute_dtype == "float32" else 2)
     assert resblock_conv3x3.launches == before + 4 * 2 * 4
+
+
+def test_engine_step_does_not_sync(gen, cuda):
+    """A step enqueues its work and returns: no host<->device copy or
+    other synchronising call inside it (every constant is built when
+    the engine is)."""
+    config = {
+        "flow": {"name": "flow-resnet", "num_filters": 32,
+                 "num_res_blocks": 1},
+        "generator": {"name": "generator-resnet", "num_filters": 32,
+                      "num_res_blocks": 1},
+        "inference": {"name": "inference", "flow": {"model": "flow"},
+                      "generator": {"model": "generator"},
+                      "skip_processing": False, "frame_height": 16,
+                      "frame_width": 24, "compute_dtype": "bfloat16"},
+    }
+    built = create_models(config, seed=2)["inference"]
+    engine = Engine(built.obj, built.params)
+    frame = torch.from_numpy(
+        gen.integers(0, 256, (1, 16, 24, 3)).astype(np.uint8)).to(cuda)
+    engine.display(engine.step(frame))  # loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.display(engine.step(frame))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -22,18 +22,18 @@ from joshupscale_tpu.models.common import (
 from joshupscale_tpu.nn import resblock_pallas
 from joshupscale_tpu.ops.display import d2s_display_u8 as j_d2s_display_u8
 from joshupscale_torch.export.weights import from_flat_numpy
-from joshupscale_torch.kernels.display import (
-    d2s_display_u8,
-    d2s_display_u8_plain,
-)
+from joshupscale_torch.kernels.display import d2s_display_u8
 from joshupscale_torch.kernels.resblock import (
     resblock_conv3x3,
     resblock_conv3x3_plain,
 )
 from joshupscale_torch.models.common import (
+    fade_scale,
     fold_res_block,
+    prepare_res_blocks,
     res_blocks_apply as t_res_blocks_apply,
 )
+from joshupscale_torch.nn.layers import fold_bn
 
 
 def _jax_blocks(rng, c, bias=False, seed=1):
@@ -68,7 +68,8 @@ def test_res_blocks_plain_matches_jax_f32(rng, c, act):
     x = rng.standard_normal((2, 6, 10, c)).astype(np.float32) * 0.5
     ref = np.asarray(j_res_blocks_apply(jp, names, jnp.asarray(x), act,
                                         Mutables(False)))
-    tp = from_flat_numpy(flatten_params(jp))
+    tp = prepare_res_blocks(from_flat_numpy(flatten_params(jp)),
+                            torch.float32)
     got = t_res_blocks_apply(tp, names, torch.from_numpy(x), act)
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
 
@@ -84,7 +85,8 @@ def test_res_blocks_plain_bf16_matches_pallas_chain(rng, act):
     x = rng.standard_normal((2, 14, 16, 64)).astype(np.float32) * 0.5
     ref = resblock_pallas.res_block_chain(
         jp, names, jnp.asarray(x, jnp.bfloat16), act, interpret=True)
-    tp = from_flat_numpy(flatten_params(jp))
+    tp = prepare_res_blocks(from_flat_numpy(flatten_params(jp)),
+                            torch.bfloat16)
     got = t_res_blocks_apply(tp, names,
                              torch.from_numpy(x).to(torch.bfloat16), act)
     assert got.dtype == torch.bfloat16
@@ -127,11 +129,24 @@ def test_resblock_wrapper_checks(rng):
         resblock_conv3x3(x, w, s, t, act="tanh")
 
 
-def test_fold_res_block_is_idempotent(rng):
-    tp = from_flat_numpy(flatten_params(_jax_blocks(rng, 32)))
-    folded = fold_res_block(tp["block_2"], torch.bfloat16)
-    assert folded["conv_1"]["kernel"].dtype == torch.bfloat16
-    assert fold_res_block(folded, torch.bfloat16) is folded
+def test_fold_res_block_form(rng):
+    """K1's operands: the kernel cast to the compute dtype, scale and
+    offset in f32 with the conv bias and the fade (4/10) folded in."""
+    raw = from_flat_numpy(flatten_params(_jax_blocks(rng, 32, bias=True)))
+    folded = prepare_res_blocks(raw, torch.bfloat16)
+    assert sorted(folded) == ["block_1", "block_2"]
+    blk, out = raw["block_2"], folded["block_2"]
+    assert out["conv_1"]["kernel"].dtype == torch.bfloat16
+    assert out["conv_2"]["scale"].dtype == torch.float32
+    scale, offset = fold_bn(blk["bn_2"])
+    fade = fade_scale(blk["fade"])
+    assert float(fade) == pytest.approx(0.4)
+    torch.testing.assert_close(out["conv_2"]["scale"], scale * fade)
+    torch.testing.assert_close(
+        out["conv_2"]["offset"],
+        (offset + blk["conv_2"]["bias"] * scale) * fade)
+    assert fold_res_block(raw["block_1"], torch.float32)[
+        "conv_1"]["kernel"].dtype == torch.float32
 
 
 def test_display_plain_matches_jax(rng):

@@ -12,7 +12,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -26,9 +25,13 @@ from joshupscale_tpu.models.generator import (
 )
 from joshupscale_tpu.runtime.engine import Engine as JEngine
 from joshupscale_torch.export.weights import from_flat_numpy
-from joshupscale_torch.models.fnet import flow_resnet_apply as t_flow
+from joshupscale_torch.models.fnet import (
+    flow_resnet_apply as t_flow,
+    prepare_flow_resnet,
+)
 from joshupscale_torch.models.generator import (
     generator_resnet_apply as t_generator,
+    prepare_generator_resnet,
 )
 from joshupscale_torch.models.registry import create_models
 from joshupscale_torch.runtime.engine import Engine, create_runtime
@@ -81,7 +84,7 @@ def test_flow_resnet_s2d_matches_jax(rng):
     _, flat = _flat_params(_config())
     jp = {k[len("flow."):]: jnp.asarray(v) for k, v in flat.items()
           if k.startswith("flow.")}
-    tp = from_flat_numpy(flat)["flow"]
+    tp = prepare_flow_resnet(from_flat_numpy(flat)["flow"], torch.float32)
     frames = [rng.random((2, H, W, 3), np.float32) - 0.5 for _ in range(4)]
     jparams = unflatten_into(
         j_create_models(_config())["flow"].params, jp)
@@ -99,7 +102,8 @@ def test_generator_s2d_tail_matches_jax(rng):
           if k.startswith("generator.")}
     jparams = unflatten_into(
         j_create_models(_config())["generator"].params, jp)
-    tp = from_flat_numpy(flat)["generator"]
+    tp = prepare_generator_resnet(from_flat_numpy(flat)["generator"],
+                                  torch.float32)
     frame = rng.random((2, H, W, 3), np.float32) - 0.5
     pre_warp = rng.random((2, H, W, 48), np.float32) - 0.5
     ref = np.asarray(j_generator(jparams, jnp.asarray(frame),
@@ -135,6 +139,23 @@ def test_engine_matches_jax_bf16(rng):
         diff = np.abs(got - ref)
         assert diff.max() <= 2
         assert (diff > 0).mean() <= 0.10
+
+
+def test_step_builds_no_host_constants(rng, monkeypatch):
+    """Every fold, cast and constant table of the step (the tail's
+    block-diagonal product, the bilinear phase kernel) is made when the
+    engine is built: on a card a tensor made from host data inside the
+    step would stall it on the copy."""
+    _, t_engine = _engines(_config("bfloat16"))
+    frame = torch.from_numpy(_frames(rng, 1))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the step made a tensor from host data")
+
+    for name in ("from_numpy", "tensor", "as_tensor"):
+        monkeypatch.setattr(torch, name, refuse)
+    out = t_engine.step(frame)
+    assert out.shape == (1, H, W, 48) and out.dtype == torch.bfloat16
 
 
 def test_process_clip_equals_streaming_and_reset(rng):
