@@ -4,13 +4,17 @@
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc``, holds
-each against its plain PyTorch version on the card, drives the quality
-tier (flow-resnet 64x10 + generator-resnet 64x24, bf16, 270x480 ->
+each against its plain PyTorch version on the card (the conv probe's P1
+and P2 at full shape, all five variants), drives the quality tier
+(flow-resnet 64x10 + generator-resnet 64x24, bf16, 270x480 ->
 1080x1920, seeded random weights) through ``Engine.process`` and checks
-that every frame went through the kernels and that a step makes no
-synchronising call, holds the first frames against the same engine run
-on the CPU (plain versions), and times the frame, the step and each
-kernel with CUDA events.
+that every frame went through the serving kernels and that a step makes
+no synchronising call, holds the first frames against the same engine
+run on the CPU (plain versions), and times the frame, the step and each
+kernel with CUDA events.  Then it drives the second path, the conv
+probe (``joshupscale_torch.tools.conv_probe.run``), checks that it went
+through P1 and P2, and prints K1, P2, P1 and cuDNN side by side at the
+res-block conv's shape.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
@@ -25,7 +29,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -47,43 +50,6 @@ TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
-
-
-def cuda_time_ms(fn, reps: int, warmup: int = 3,
-                 device_only: bool = True) -> float:
-    """Median per-call time of ``fn`` on the card, CUDA events, after
-    warm-up: 5 runs of ``reps`` calls each.
-
-    ``device_only``: a spin kernel runs first so the host enqueues all
-    ``reps`` calls while the card is still busy, and the events then
-    time the calls back to back on the card, without host launch gaps.
-    Without it the time includes whatever the host adds between calls.
-    """
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(100_000_000)  # ~50 ms of spinning
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return float(np.median(times))
 
 
 def k1_bound_ms(n, h, w, c, residual) -> tuple:
@@ -228,10 +194,41 @@ def frames_for(t: int, seed: int) -> np.ndarray:
     return np.stack(out)
 
 
+def all_kernels():
+    """The four kernels' wrappers: K1, K2, P1, P2."""
+    from joshupscale_torch.kernels.display import d2s_display_u8
+    from joshupscale_torch.kernels.probes import probe_dot, probe_patch_dot
+    from joshupscale_torch.kernels.resblock import resblock_conv3x3
+    return resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot
+
+
+def phase_probes(torch, device):
+    """P1 (three variants) and P2 (single, pair) vs their plain versions
+    at full shape; returns {variant: largest difference}."""
+    from joshupscale_torch.tools import conv_probe
+
+    kernels = all_kernels()
+    counts = [k.launches for k in kernels]
+    errs = {}
+    for name in conv_probe.VARIANTS:
+        probe = conv_probe.make_probe(name, conv_probe.DOT_TILE, device)
+        if probe.expect is None:  # the cuDNN yardstick
+            continue
+        before = sum(k.launches for k in kernels)
+        errs[name] = conv_probe.check(probe)
+        if sum(k.launches for k in kernels) == before:
+            raise AssertionError(f"{name}: no kernel launch counted")
+        log(f"probe {name} at full shape vs plain: max |diff| "
+            f"{errs[name]:.4g} (bound: 1 bf16 ulp, 2 for the pair, plus "
+            f"the f32 reorder bound) ok")
+    # Comparison launches are not a path's launches: restore the counts.
+    for k, n in zip(kernels, counts):
+        k.launches = n
+    return errs
+
+
 def phase_main(torch, seed, device):
     """The main path: Engine.process on the quality tier at full width."""
-    from joshupscale_torch.kernels.display import d2s_display_u8
-    from joshupscale_torch.kernels.resblock import resblock_conv3x3
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import Engine
 
@@ -240,17 +237,20 @@ def phase_main(torch, seed, device):
     engine = Engine(built.obj, params, device=device)
     frames = frames_for(FRAMES, seed)
 
-    resblock_conv3x3.launches = 0
-    d2s_display_u8.launches = 0
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
     outs = [engine.process(f) for f in frames]
     torch.cuda.synchronize()
-    k1, k2 = resblock_conv3x3.launches, d2s_display_u8.launches
+    k1, k2, p1, p2 = (k.launches for k in kernels)
     t = len(frames)
     log(f"main path: {t} frames through Engine.process, K1 launches={k1} "
-        f"({k1 / t:g}/frame), K2 launches={k2} ({k2 / t:g}/frame)")
-    if k1 != K1_PER_FRAME * t or k2 != t:
-        raise AssertionError(f"expected {K1_PER_FRAME}/frame K1 and 1/frame "
-                             f"K2 launches, got {k1} and {k2}")
+        f"({k1 / t:g}/frame), K2 launches={k2} ({k2 / t:g}/frame), P1/P2 "
+        f"launches={p1}/{p2}")
+    if k1 != K1_PER_FRAME * t or k2 != t or p1 or p2:
+        raise AssertionError(f"expected {K1_PER_FRAME}/frame K1, 1/frame "
+                             f"K2 and no P1/P2 launches, got {k1}, {k2}, "
+                             f"{p1}, {p2}")
     for o in outs:
         if o.shape != (4 * H, 4 * W, 3) or o.dtype != np.uint8:
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
@@ -298,6 +298,7 @@ def phase_times(torch, engine, frames, device):
         d2s_display_u8, d2s_display_u8_plain)
     from joshupscale_torch.kernels.resblock import (
         resblock_conv3x3, resblock_conv3x3_plain)
+    from joshupscale_torch.tools.timing import cuda_time_ms
 
     torch.backends.cudnn.allow_tf32 = False
     # Frame latency as a host sees it: blocking process(), copies included.
@@ -362,6 +363,50 @@ def phase_times(torch, engine, frames, device):
     return {
         "k1": k1, "lib_ms": lib_ms, "k2": (k2_ms, k2_plain, k2_bound),
         "frame_ms": float(np.median(lat)), "step_ms": step_ms,
+    }
+
+
+def phase_conv_probe(torch, device, k1_conv1_ms, conv_ms):
+    """The second path: the conv probe tool's run over every variant,
+    its kernel launches counted; then K1 against its parts."""
+    from joshupscale_torch.tools import conv_probe
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    # phase_probes has just held every variant against its plain version.
+    res = conv_probe.run(conv_probe.VARIANTS, conv_probe.DOT_TILE, device,
+                         check_first=False, log=log)
+    torch.cuda.synchronize()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    log(f"conv_probe path: P1 launches={p1}, P2 launches={p2}, K1/K2 "
+        f"launches={k1}/{k2}")
+    if not p1 or not p2 or k1 or k2:
+        raise AssertionError("the conv probe path must launch P1 and P2 "
+                             "and no serving kernel")
+    us = lambda name: res[name]["ms"] * 1e3  # noqa: E731
+    log(f"K1 and its parts at (1, {H}, {W}, 64) bf16, this run: K1 conv_1 "
+        f"{k1_conv1_ms * 1e3:.2f} us | P2 patch {us('patch'):.2f} us | P1 "
+        f"dot64_resident {us('dot64_resident'):.2f} us | cuDNN conv+relu "
+        f"{us('cudnn'):.2f} us (conv alone, K1's weights: "
+        f"{conv_ms * 1e3:.2f} us)")
+    return res, p1, p2
+
+
+def probe_entry(name, source, replaces, variants, res, errs, launches):
+    """The kernel line's entry for P1 or P2: the first variant's numbers
+    at top level, every variant's under "variants"."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_call")
+    first = res[variants[0]]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches, "path": "conv_probe",
+        "serving_launches_per_frame": 0,
+        "max_abs_err": max(errs[v] for v in variants),
+        **{k: first[k] for k in keys}, "variant": variants[0],
+        "variants": {v: {**{k: res[v][k] for k in keys},
+                         "max_abs_err": errs[v]} for v in variants},
     }
 
 
@@ -437,6 +482,7 @@ def main() -> int:
         return 1
     from joshupscale_torch import resolve_device
     from joshupscale_torch.kernels import _build
+    from joshupscale_torch.tools.timing import card_line
 
     device = resolve_device("cuda")
     card = card_line()
@@ -452,11 +498,14 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     k1_err = phase_k1(torch, rng, device)
     k2_err = phase_k2(torch, rng, device)
+    probe_errs = phase_probes(torch, device)
     engine, frames, k1_launches, k2_launches = phase_main(
         torch, args.seed, device)
     times = phase_times(torch, engine, frames, device)
     if args.profile:
         profile(torch, engine, frames, device, args.profile)
+    probes, p1_launches, p2_launches = phase_conv_probe(
+        torch, device, times["k1"]["conv_1"][0], times["lib_ms"])
 
     (c1, p1, b1, by1), (c2, p2, b2, by2) = (times["k1"]["conv_1"],
                                             times["k1"]["conv_2"])
@@ -465,7 +514,7 @@ def main() -> int:
         {"name": "resblock_conv3x3", "route": "cuda",
          "source": "joshupscale_torch/csrc/resblock_conv.cu",
          "replaces": "joshupscale_tpu/nn/resblock_pallas.py:84",
-         "launches": k1_launches, "max_abs_err": k1_err,
+         "launches": k1_launches, "path": "serving", "max_abs_err": k1_err,
          "ms": (c1 + c2) / 2, "plain_ms": (p1 + p2) / 2,
          "bound_ms": (b1 + b2) / 2,
          "bound_by": by2 if b2 >= b1 else by1,
@@ -473,9 +522,17 @@ def main() -> int:
         {"name": "d2s_display_u8", "route": "cuda",
          "source": "joshupscale_torch/csrc/display_u8.cu",
          "replaces": "joshupscale_tpu/ops/display.py:35",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": k2_launches, "path": "serving", "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None},
+        probe_entry("probe_dot", "joshupscale_torch/csrc/probe_dot.cu",
+                    "tools/pallas_conv_probe.py:61",
+                    ["dot64_resident", "dot128_resident", "dot64_stream"],
+                    probes, probe_errs, p1_launches),
+        probe_entry("probe_patch_dot",
+                    "joshupscale_torch/csrc/probe_patch_dot.cu",
+                    "tools/pallas_conv_probe.py:120", ["patch", "pair"],
+                    probes, probe_errs, p2_launches),
     ]
     log(f"frame {times['frame_ms']:.3f} ms (Engine.process median), step "
         f"{times['step_ms']:.3f} ms on {card}")

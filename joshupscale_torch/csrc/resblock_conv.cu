@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
 
 constexpr int TILE_H = 8;
@@ -52,15 +54,6 @@ constexpr int MAX_DEVICES = 64;
 __device__ __forceinline__ float activate(float v, int act, float alpha) {
   if (act == ACT_RELU) return fmaxf(v, 0.0f);
   return v >= 0.0f ? v : v * alpha;
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int C>
@@ -163,8 +156,8 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
               ws + (nt * 8 + g) * G::WS + tap * C + kc * 16 + t * 2;
           const uint32_t b0 = *reinterpret_cast<const uint32_t*>(q);
           const uint32_t b1 = *reinterpret_cast<const uint32_t*>(q + 8);
-          mma_bf16(acc[0][nt], a[0], b0, b1);
-          mma_bf16(acc[1][nt], a[1], b0, b1);
+          jt::mma_bf16(acc[0][nt], a[0], b0, b1);
+          jt::mma_bf16(acc[1][nt], a[1], b0, b1);
         }
       }
     }
@@ -275,32 +268,14 @@ cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
                         int n, int h, int wd, int act, float alpha,
                         cudaStream_t stream) {
   using G = Geom<C>;
-  // Per device: the shared-memory opt-in and the persistent grid size
-  // (SMs x resident CTAs per SM), set up at the first launch there.
   static int grid_cap[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (grid_cap[dev] == 0) {
-    e = cudaFuncSetAttribute(conv3x3_bf16_kernel<C>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             int(G::SMEM));
-    if (e != cudaSuccess) return e;
-    int sms = 0, per_sm = 0;
-    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess)
-      return e;
-    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, conv3x3_bf16_kernel<C>, THREADS, G::SMEM)) !=
-        cudaSuccess)
-      return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    grid_cap[dev] = sms * per_sm;
-  }
+  cudaError_t e;
+  const int cap = jt::persistent_grid(conv3x3_bf16_kernel<C>, THREADS,
+                                      G::SMEM, grid_cap, MAX_DEVICES, &e);
+  if (cap == 0) return e;
   const int tiles = n * ((h + TILE_H - 1) / TILE_H) *
                     ((wd + TILE_W - 1) / TILE_W);
-  const int grid = tiles < grid_cap[dev] ? tiles : grid_cap[dev];
+  const int grid = tiles < cap ? tiles : cap;
   conv3x3_bf16_kernel<C><<<grid, THREADS, G::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), scale, offset,

@@ -2,6 +2,8 @@
 
 - ``resblock.resblock_conv3x3`` (K1): fused res-block conv.
 - ``display.d2s_display_u8`` (K2): depth_to_space(4) + uint8 display.
+- ``probes.probe_dot`` (P1) and ``probes.probe_patch_dot`` (P2): the
+  conv probe's product and patch-build kernels (``tools/conv_probe.py``).
 
 Nothing is compiled at import; ``_build`` runs ``nvcc`` at first launch.
 """

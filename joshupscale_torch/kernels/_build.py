@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library, at first use, into
 ``joshupscale_torch/_build/`` (git-ignored), then loaded with ``ctypes``.
-The library name carries a hash of the source and the flags, so an
-edited source is rebuilt and concurrent builders never share a partial
-file.  All sources are compiled in parallel (one ``nvcc`` each).
+The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and concurrent builders never share a partial file.  All sources are compiled in parallel (one ``nvcc`` each).
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -46,10 +46,13 @@ def find_nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``; its name hashes the source,
+    every shared header ``csrc/*.cuh`` and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = None) -> None:

@@ -14,6 +14,20 @@ from joshupscale_torch.kernels.display import (
     d2s_display_u8,
     d2s_display_u8_plain,
 )
+from joshupscale_torch.kernels.probes import (
+    HALO,
+    K,
+    PW,
+    pair_tail_bound,
+    pair_tail_plain,
+    probe_dot,
+    probe_dot_bound,
+    probe_dot_plain,
+    probe_patch_dot,
+    probe_patch_dot_bound,
+    probe_patch_dot_plain,
+    within_bound,
+)
 from joshupscale_torch.kernels.resblock import (
     resblock_conv3x3,
     resblock_conv3x3_plain,
@@ -86,6 +100,71 @@ def test_display_kernel_bit_exact(gen, cuda, dtype):
     assert d2s_display_u8.launches == before + 1
     assert torch.equal(got, d2s_display_u8_plain(
         x.reshape(6, 7, 9, 48)).reshape(got.shape))
+
+
+def _bf16(gen, shape, device, scale=1.0):
+    return torch.from_numpy(gen.standard_normal(shape).astype(
+        np.float32) * scale).to(device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["resident", "streamed"])
+@pytest.mark.parametrize("m,k,tile", [(256, 576, 64), (231, 128, 77)],
+                         ids=["small", "odd"])
+def test_probe_dot_kernel_matches_plain(gen, cuda, n, resident, m, k, tile):
+    """P1 within one bf16 ulp plus the f32 reorder bound.  The odd shape
+    has a ragged last 128-row tile and tiles straddling tile_m."""
+    a, b = _bf16(gen, (m, k), cuda), _bf16(gen, (k, n), cuda)
+    before = probe_dot.launches
+    got = probe_dot(a, b, tile, resident)
+    torch.cuda.synchronize()
+    assert probe_dot.launches == before + 1
+    ref = probe_dot_plain(a, b, tile, resident)
+    ok, err = within_bound(got, ref,
+                           probe_dot_bound(a, b, tile, resident, ref))
+    assert ok, err
+
+
+@pytest.mark.parametrize("tile,m", [(64, 192), (77, 250)],
+                         ids=["small", "odd"])
+def test_probe_patch_dot_kernel_matches_plain(gen, cuda, tile, m):
+    """P2 single within one bf16 ulp plus the reorder bound; the pair
+    against the plain second half on the kernel's own y1 (two ulps plus
+    the reorder bound).  250 // 77 truncates to 3 steps."""
+    x = _bf16(gen, (tile + 2 * HALO + 8, 64), cuda)
+    w1, w2 = (_bf16(gen, (K, 64), cuda, 0.05) for _ in range(2))
+    before = probe_patch_dot.launches
+    y1 = probe_patch_dot(x, w1, w2, tile, False, m=m)
+    pair = probe_patch_dot(x, w1, w2, tile, True, m=m)
+    torch.cuda.synchronize()
+    assert probe_patch_dot.launches == before + 2
+    assert y1.shape == pair.shape == ((m // tile) * tile, 64)
+    ref = probe_patch_dot_plain(x, w1, w2, tile, False, m=m)
+    ok, err = within_bound(y1, ref,
+                           probe_patch_dot_bound(x, w1, tile, ref, m=m))
+    assert ok, err
+    tail = pair_tail_plain(y1[:tile], x, w2).repeat(m // tile, 1)
+    ok, err = within_bound(pair, tail,
+                           pair_tail_bound(y1[:tile], x, w2, tail))
+    assert ok, err
+
+
+def test_probe_kernels_refuse_bad_operands(gen, cuda):
+    a, b = _bf16(gen, (256, K), cuda), _bf16(gen, (K, 64), cuda)
+    flat = torch.empty(256 * K + 8, dtype=torch.bfloat16, device=cuda)
+    misaligned = flat[1:1 + 256 * K].view(256, K)
+    with pytest.raises(ValueError):
+        probe_dot(misaligned, b, 64)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError):
+        probe_dot(_bf16(gen, (K, 256), cuda).t(), b, 64)  # not contiguous
+    with pytest.raises(ValueError):
+        probe_dot(a, b.cpu(), 64)  # mixed devices
+    x = _bf16(gen, (64 + HALO + PW + 1, 64), cuda)
+    with pytest.raises(ValueError):
+        probe_patch_dot(x[:, :32], b, b, 64, m=64)
+    with pytest.raises(ValueError):
+        probe_patch_dot(x[:-1], b, b, 64, True, m=64)  # too few rows
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

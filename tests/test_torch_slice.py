@@ -245,7 +245,9 @@ def test_port_imports_no_jax():
     (nor yaml outside the package loader)."""
     code = ("import sys, joshupscale_torch, joshupscale_torch.runtime.engine,"
             " joshupscale_torch.export.package, joshupscale_torch.kernels."
-            "resblock, joshupscale_torch.kernels.display\n"
+            "resblock, joshupscale_torch.kernels.display,"
+            " joshupscale_torch.kernels.probes,"
+            " joshupscale_torch.tools.conv_probe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"
             "assert not bad, bad\n")
