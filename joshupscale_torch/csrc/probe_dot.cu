@@ -11,19 +11,29 @@
 // What bounds it on an H100: at the probe's shape (M = 129600, K = 576,
 // N = 64, A resident) 9.56 GFLOP against 18 MB (the reused A rows, B and
 // the output): operations, 9.7 us at 989 TFLOP/s.  With A streamed it
-// reads 149 MB of A: bytes, about 49 us at 3.35 TB/s.  Design (simple
-// first; wgmma and TMA are the K1 redesign's work):
+// reads 149 MB of A: bytes, about 49 us at 3.35 TB/s.  Both modes use
+// mma.sync.m16n8k16 with fragments from ldmatrix, 32 x 32 outputs a warp
+// (32 x 64 streamed at N = 128), shared rows padded by 8 elements (both
+// ldmatrix patterns then hit no bank twice), and round the f32 sums to
+// bf16 once (simple first; wgmma and TMA are the K1 redesign's work).
+//
+// Resident: the TPU kernel keeps A_blk (tile_m x K, 1.49 MB at the
+// probe's shape) in VMEM and multiplies it again at every grid step.
+// No SM holds that much, so the rows are spread over the CTAs: a CTA
+// owns 96 rows of A_blk and 64 columns of B, loads both into shared
+// memory once (96 x 584 + 576 x 72 bf16 = 195,072 B at K = 576) and
+// then computes the product again for every tile of its tile group,
+// from shared memory alone.  The grid is (row blocks, N / 64, tile
+// groups), with as many tile groups as fill the SMs once.  So this mode
+// times the product with no operand traffic but the output stores.
+//
+// Streamed:
 //   * a persistent grid (SMs x resident CTAs) walks 128-row output
-//     tiles; each CTA keeps all of B in shared memory, rows padded by 8
-//     elements (K x (N + 8) bf16: 82,944 B for N = 64, 156,672 B for
-//     N = 128), loaded once;
+//     tiles; each CTA keeps all of B in shared memory, K x (N + 8) bf16
+//     (82,944 B for N = 64, 156,672 B for N = 128), loaded once;
 //   * A is streamed in 128 x 64 k-chunks through a 3-stage cp.async ring
-//     (rows padded by 8, zero-filled past M); each row's source is
-//     computed on its own, so a tile may straddle tile_m boundaries;
-//   * 8 warps, 4 along rows x 2 along columns, each 32 rows x N/2
-//     columns on mma.sync.m16n8k16, fragments from ldmatrix (the padded
-//     rows make both ldmatrix patterns bank-conflict free);
-//   * the epilogue rounds the f32 sums to bf16 once.
+//     (zero-filled past M);
+//   * 8 warps, 4 along rows x 2 along columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,12 +58,82 @@ constexpr size_t smem_bytes(int k) {
          sizeof(__nv_bfloat16);
 }
 
+// Resident mode.
+constexpr int RBM = 96;             // A_blk rows a CTA holds
+constexpr int RBN = 64;             // columns of B a CTA holds
+constexpr int R_THREADS = 192;      // 6 warps: 3 along rows x 2 along columns
+
+constexpr size_t resident_smem_bytes(int k) {
+  return (size_t(RBM) * (k + PAD) + size_t(k) * (RBN + PAD)) *
+         sizeof(__nv_bfloat16);
+}
+
+__global__ void __launch_bounds__(R_THREADS, 1)
+probe_dot_resident_kernel(const __nv_bfloat16* __restrict__ a,
+                          const __nv_bfloat16* __restrict__ b,
+                          __nv_bfloat16* __restrict__ y, int M, int K,
+                          int N, int tile_m) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lda = K + PAD;
+  constexpr int LDB = RBN + PAD;
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* bs = as + RBM * lda;
+
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * RBM;  // first A_blk row of this CTA
+  const int c0 = blockIdx.y * RBN;  // first column of this CTA
+  for (int i = tid; i < RBM * (K / 8); i += R_THREADS) {
+    const int r = i / (K / 8);
+    const int v = i % (K / 8);
+    const bool valid = r0 + r < tile_m;
+    const __nv_bfloat16* p = valid ? a + size_t(r0 + r) * K + v * 8 : a;
+    jt::cp_async16(as + r * lda + v * 8, p, valid);
+  }
+  for (int i = tid; i < K * (RBN / 8); i += R_THREADS) {
+    const int k = i / (RBN / 8);
+    const int v = i % (RBN / 8);
+    jt::cp_async16(bs + k * LDB + v * 8, b + size_t(k) * N + c0 + v * 8,
+                   true);
+  }
+  jt::cp_async_commit();
+  jt::cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wm = (warp % 3) * 32;
+  const int wn = (warp / 3) * 32;
+  if (r0 + wm >= tile_m) return;  // all of this warp's rows lie past A_blk
+  const int tiles = M / tile_m;
+  for (int tile = blockIdx.z; tile < tiles; tile += gridDim.z) {
+    float acc[2][4][4] = {};
+    jt::warp_tile_mma<4>(acc, as + wm * lda, lda, bs + wn, LDB, K / 16,
+                         lane);
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = r0 + wm + mf * 16 + g + half * 8;
+        if (r >= tile_m) continue;
+        __nv_bfloat16* out =
+            y + (size_t(tile) * tile_m + r) * N + c0 + wn + 2 * t;
+#pragma unroll
+        for (int nf = 0; nf < 4; ++nf)
+          *reinterpret_cast<__nv_bfloat162*>(out + nf * 8) =
+              __floats2bfloat162_rn(acc[mf][nf][half * 2],
+                                    acc[mf][nf][half * 2 + 1]);
+      }
+  }
+}
+
+// Streamed mode.
 template <int N>
 __global__ void __launch_bounds__(THREADS, 1)
 probe_dot_kernel(const __nv_bfloat16* __restrict__ a,
                  const __nv_bfloat16* __restrict__ b,
-                 __nv_bfloat16* __restrict__ y, int M, int K, int tile_m,
-                 int resident) {
+                 __nv_bfloat16* __restrict__ y, int M, int K) {
   constexpr int BS = N + PAD;   // B row stride (elements)
   constexpr int WN = N / 2;     // columns per warp
   constexpr int NF = WN / 8;    // n8 fragments per warp
@@ -93,8 +173,7 @@ probe_dot_kernel(const __nv_bfloat16* __restrict__ a,
       const int v = i % (KC / 8);
       const int row = tile * BM + r;
       const bool valid = row < M;
-      const int src = resident ? row % tile_m : row;
-      const __nv_bfloat16* p = valid ? a + size_t(src) * K + k0 + v * 8 : a;
+      const __nv_bfloat16* p = valid ? a + size_t(row) * K + k0 + v * 8 : a;
       jt::cp_async16(dst + r * AS + v * 8, p, valid);
     }
   };
@@ -122,25 +201,8 @@ probe_dot_kernel(const __nv_bfloat16* __restrict__ a,
     if (s + STAGES - 1 < total) load_stage(s + STAGES - 1);
     jt::cp_async_commit();
 
-    const __nv_bfloat16* at = as + (s % STAGES) * A_STAGE;
-#pragma unroll
-    for (int k16 = 0; k16 < KC / 16; ++k16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf)
-        jt::ldmatrix_a(af[mf], at + (wm + mf * 16) * AS + k16 * 16, AS, lane);
-      const __nv_bfloat16* bt = bs + (kc * KC + k16 * 16) * BS + wn;
-#pragma unroll
-      for (int nf2 = 0; nf2 < NF / 2; ++nf2) {
-        uint32_t bf[4];
-        jt::ldmatrix_b(bf, bt + nf2 * 16, BS, lane);
-#pragma unroll
-        for (int mf = 0; mf < 2; ++mf) {
-          jt::mma_bf16(acc[mf][2 * nf2], af[mf], bf[0], bf[1]);
-          jt::mma_bf16(acc[mf][2 * nf2 + 1], af[mf], bf[2], bf[3]);
-        }
-      }
-    }
+    jt::warp_tile_mma<NF>(acc, as + (s % STAGES) * A_STAGE + wm * AS, AS,
+                          bs + kc * KC * BS + wn, BS, KC / 16, lane);
 
     if (kc == kchunks - 1) {
       const int row0 = (blockIdx.x + (s / kchunks) * gridDim.x) * BM + wm;
@@ -163,8 +225,8 @@ probe_dot_kernel(const __nv_bfloat16* __restrict__ a,
 }
 
 template <int N>
-cudaError_t launch(const void* a, const void* b, void* y, int m, int k,
-                   int tile_m, int resident, cudaStream_t stream) {
+cudaError_t launch_streamed(const void* a, const void* b, void* y, int m,
+                            int k, cudaStream_t stream) {
   static int grid_cap[MAX_DEVICES] = {};
   cudaError_t e;
   const int cap = jt::persistent_grid(probe_dot_kernel<N>, THREADS,
@@ -176,7 +238,31 @@ cudaError_t launch(const void* a, const void* b, void* y, int m, int k,
   probe_dot_kernel<N><<<grid, THREADS, smem_bytes<N>(k), stream>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
-      m, k, tile_m, resident);
+      m, k);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_resident(const void* a, const void* b, void* y, int m,
+                            int k, int n, int tile_m, cudaStream_t stream) {
+  static int grid_cap[MAX_DEVICES] = {};
+  cudaError_t e;
+  const int cap = jt::persistent_grid(probe_dot_resident_kernel, R_THREADS,
+                                      resident_smem_bytes(K_MAX), grid_cap,
+                                      MAX_DEVICES, &e);
+  if (cap == 0) return e;
+  const int row_blocks = (tile_m + RBM - 1) / RBM;
+  const int col_blocks = n / RBN;
+  const int tiles = m / tile_m;
+  int groups = cap / (row_blocks * col_blocks);
+  if (groups < 1) groups = 1;
+  if (groups > tiles) groups = tiles;
+  if (groups > 65535) groups = 65535;
+  const dim3 grid(row_blocks, col_blocks, groups);
+  probe_dot_resident_kernel<<<grid, R_THREADS, resident_smem_bytes(k),
+                              stream>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
+      m, k, n, tile_m);
   return cudaGetLastError();
 }
 
@@ -193,9 +279,10 @@ int jt_probe_dot(const void* a, const void* b, void* y, int m, int k, int n,
   if (m <= 0 || k <= 0 || k % KC != 0 || k > K_MAX || tile_m <= 0 ||
       m % tile_m != 0)
     return int(cudaErrorInvalidValue);
-  if (n == 64) return int(launch<64>(a, b, y, m, k, tile_m, resident, st));
-  if (n == 128) return int(launch<128>(a, b, y, m, k, tile_m, resident, st));
-  return int(cudaErrorInvalidValue);
+  if (n != 64 && n != 128) return int(cudaErrorInvalidValue);
+  if (resident) return int(launch_resident(a, b, y, m, k, n, tile_m, st));
+  if (n == 64) return int(launch_streamed<64>(a, b, y, m, k, st));
+  return int(launch_streamed<128>(a, b, y, m, k, st));
 }
 
 const char* jt_error_string(int err) {

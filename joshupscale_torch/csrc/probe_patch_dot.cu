@@ -73,30 +73,6 @@ __device__ __forceinline__ void zero(float (&acc)[2][4][4]) {
       for (int e = 0; e < 4; ++e) acc[mf][nf][e] = 0.0f;
 }
 
-// acc += A(rows wm.., 16*k16 ..) @ W(16*k16 + k0 .., columns wn..) for
-// k16 < 4: one 64-deep slice, A's rows starting at `a`.
-__device__ __forceinline__ void mma_k64(float (&acc)[2][4][4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* w, int lane) {
-#pragma unroll
-  for (int k16 = 0; k16 < C / 16; ++k16) {
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
-      jt::ldmatrix_a(af[mf], a + mf * 16 * LD + k16 * 16, LD, lane);
-#pragma unroll
-    for (int nf2 = 0; nf2 < 2; ++nf2) {
-      uint32_t bf[4];
-      jt::ldmatrix_b(bf, w + k16 * 16 * LD + nf2 * 16, LD, lane);
-#pragma unroll
-      for (int mf = 0; mf < 2; ++mf) {
-        jt::mma_bf16(acc[mf][2 * nf2], af[mf], bf[0], bf[1]);
-        jt::mma_bf16(acc[mf][2 * nf2 + 1], af[mf], bf[2], bf[3]);
-      }
-    }
-  }
-}
-
 template <bool PAIR>
 __global__ void __launch_bounds__(THREADS, 1)
 probe_patch_dot_kernel(const __nv_bfloat16* __restrict__ x,
@@ -166,7 +142,9 @@ probe_patch_dot_kernel(const __nv_bfloat16* __restrict__ x,
     const __nv_bfloat16* xt = xs + (s & 1) * X_ELEMS + wm * LD;
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx)
-      mma_k64(acc, xt + dx * LD, w1s + (dy * 3 + dx) * C * LD + wn, lane);
+      jt::warp_tile_mma<4>(acc, xt + dx * LD, LD,
+                           w1s + (dy * 3 + dx) * C * LD + wn, LD, C / 16,
+                           lane);
     if (dy != 2) continue;
 
     const int item = blockIdx.x + (s / 3) * gridDim.x;
@@ -209,7 +187,8 @@ probe_patch_dot_kernel(const __nv_bfloat16* __restrict__ x,
     zero(acc2);
 #pragma unroll 1
     for (int tap = 0; tap < TAPS; ++tap)
-      mma_k64(acc2, ys + wm * LD, w2s + tap * C * LD + wn, lane);
+      jt::warp_tile_mma<4>(acc2, ys + wm * LD, LD, w2s + tap * C * LD + wn,
+                           LD, C / 16, lane);
     const __nv_bfloat16* res = x + size_t(2 * pw + 2 + pw + 1 + r0) * C;
 #pragma unroll
     for (int mf = 0; mf < 2; ++mf)

@@ -58,6 +58,34 @@ __device__ __forceinline__ void ldmatrix_b(uint32_t* r,
       : "r"(smem_addr(p)));
 }
 
+// acc += A @ B for one warp's 32 x (8 NF) output tile over 16 k16s of k:
+// A's 32 rows at `a` (row stride lda), B's rows at `b` (row stride ldb,
+// already offset to the warp's first column), both in shared memory.
+template <int NF>
+__device__ __forceinline__ void warp_tile_mma(float (&acc)[2][NF][4],
+                                              const __nv_bfloat16* a,
+                                              int lda,
+                                              const __nv_bfloat16* b,
+                                              int ldb, int k16s, int lane) {
+#pragma unroll 4
+  for (int k16 = 0; k16 < k16s; ++k16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+      ldmatrix_a(af[mf], a + mf * 16 * lda + k16 * 16, lda, lane);
+#pragma unroll
+    for (int nf2 = 0; nf2 < NF / 2; ++nf2) {
+      uint32_t bf[4];
+      ldmatrix_b(bf, b + k16 * 16 * ldb + nf2 * 16, ldb, lane);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf) {
+        mma_bf16(acc[mf][2 * nf2], af[mf], bf[0], bf[1]);
+        mma_bf16(acc[mf][2 * nf2 + 1], af[mf], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
 // 16-byte asynchronous copy global -> shared; when !valid nothing is
 // read and the 16 bytes are zero-filled (src must still be a valid
 // address).

@@ -8,7 +8,9 @@ splits the res-block conv's cost (K1) into its parts at K1's shape,
   ``kernel``: the product alone, ``bf16(A_blk @ B)`` with A (M, 576)
   and B (576, N).  CUDA source ``csrc/probe_dot.cu``.  Bound by
   operations with A resident (9.7 us for N = 64 on an H100), by bytes
-  with A streamed (149 MB of A, about 49 us).
+  with A streamed (149 MB of A, about 49 us).  Resident mode keeps A_blk
+  in shared memory, spread over the CTAs, as the TPU kernel keeps it in
+  VMEM: it times the product with no operand traffic.
 - P2 ``probe_patch_dot`` replaces ``tools/pallas_conv_probe.py
   probe_patch_dot`` -> ``kernel``: the 9-tap patch of a flat padded
   buffer times the (576, 64) weights, relu, and with ``pair`` the second
@@ -46,17 +48,14 @@ HALO = 2 * PW + 2      # flat offset of tap (2, 2)
 DOT_WIDTHS = (64, 128)
 DOT_K_STEP = 64        # P1's k-chunk: K must be a multiple, up to 576
 
-_libs = {}
 
-
-def _kernel_lib(name: str, argtypes) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is None:
-        lib = _build.load(name)
-        fn = getattr(lib, f"jt_{name}")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
+def _entry(name: str, argtypes) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, its entry point ``jt_<name>``
+    typed (assigning the types again is harmless)."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"jt_{name}")
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -145,7 +144,7 @@ def probe_dot(a: torch.Tensor, b: torch.Tensor, tile_m: int,
     n = b.shape[1]
     y = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = _kernel_lib("probe_dot", [vp, vp, vp, ci, ci, ci, ci, ci, vp])
+    lib = _entry("probe_dot", [vp, vp, vp, ci, ci, ci, ci, ci, vp])
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.jt_probe_dot(a.data_ptr(), b.data_ptr(), y.data_ptr(), m,
@@ -242,7 +241,7 @@ def probe_patch_dot(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     y = torch.empty((steps * tile_rows, C), dtype=torch.bfloat16,
                     device=x.device)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib = _kernel_lib("probe_patch_dot", [vp, vp, vp, vp, ci, ci, ci, ci, vp])
+    lib = _entry("probe_patch_dot", [vp, vp, vp, vp, ci, ci, ci, ci, vp])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.jt_probe_patch_dot(x.data_ptr(), w1.data_ptr(),
@@ -275,10 +274,10 @@ def pair_tail_bound(y1: torch.Tensor, x: torch.Tensor, w2: torch.Tensor,
     bf16 ulp of the rounded second product and one of the rounded sum,
     plus the second product's reorder bound.
 
-    The pair is held against its plain version on a shared y1: a y1
-    that differs by one ulp (within the single product's bound) would
-    spread through nine copies of w2, so that difference is checked
-    once, on the single product.
+    The pair is held against its plain version on the rows whose y1
+    both round alike: a y1 one ulp apart (within the single product's
+    bound) would spread through nine copies of w2, so that difference
+    is checked once, on the single product.
     """
     y1f = torch.cat([y1.float()] * 9, dim=1)
     w2f = w2.float()
