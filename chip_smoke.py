@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
-Builds the port's CUDA kernels from ``joshupscale_torch/csrc``, holds
-K1 and K2 against their plain PyTorch versions on the card, drives the
+Builds the port's CUDA kernels from ``joshupscale_torch/csrc`` and
+prints each kernel's registers and spills (``ptxas -v``), holds K1 and
+K2 against their plain PyTorch versions on the card, drives the
 quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16, 270x480
 -> 1080x1920, seeded random weights) through ``Engine.process`` and checks
 that every frame went through the serving kernels and that a step makes
@@ -14,7 +15,9 @@ kernel with CUDA events.  Then it drives the second path, the conv
 probe (``joshupscale_torch.tools.conv_probe.run``), which holds P1 and
 P2 against their plain versions at full shape (all five variants) and
 times them; checks that it went through P1 and P2; and prints K1, P2,
-P1 and cuDNN side by side at the res-block conv's shape.
+P1 and cuDNN side by side at the res-block conv's shape.  K1's and the
+probes' lines and kernel entries carry the share of the bf16 peak and
+the fraction of the bound's rate.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
@@ -52,13 +55,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def k1_flops(n, h, w, c) -> float:
+    return 2.0 * n * h * w * 9 * c * c
+
+
 def k1_bound_ms(n, h, w, c, residual) -> tuple:
     """K1's bound in bf16: each input read once, the output written once,
     against the matmul work at the tensor cores' bf16 peak."""
     itemsize = 2
     act = n * h * w * c * itemsize
     nbytes = act * (3 if residual else 2) + 9 * c * c * itemsize + 2 * c * 4
-    flops = 2.0 * n * h * w * 9 * c * c
+    flops = k1_flops(n, h, w, c)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -312,7 +319,9 @@ def phase_times(torch, engine, frames, device):
         bound, by = k1_bound_ms(1, H, W, c, r is not None)
         k1[name] = (ms, plain, bound, by)
         log(f"K1 {name} (1,{H},{W},{c}) bf16: {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {bound:.4f} ms ({by})")
+            f"{plain:.4f} ms, bound {bound:.4f} ms ({by}); "
+            f"{k1_flops(1, H, W, c) / (ms * 1e-3) / PEAK_BF16_FLOPS:.1%} of "
+            f"the bf16 peak, {bound / ms:.1%} of the bound's rate")
     w_oihw = wt.permute(0, 3, 1, 2)
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory
     lib_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
@@ -369,7 +378,8 @@ def probe_entry(name, source, replaces, variants, res, launches):
     """The kernel line's entry for P1 or P2: the first variant's numbers
     at top level, each other variant's under "other_variants"."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_call", "max_abs_err")
+            "library_call", "max_abs_err", "share_of_bf16_peak",
+            "fraction_of_bound")
     return {
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "path": "conv_probe",
@@ -462,6 +472,11 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build (nvcc, sm_90a, in parallel): "
         f"{time.perf_counter() - t0:.1f} s")
+    for source, rows in _build.resource_usage().items():
+        log(f"ptxas -v {source}.cu: " + "; ".join(
+            f"{k} {r} registers, {sp} B spilled"
+            + (f", {len(n)} notes ({n[0].split()[0]})" if n else "")
+            for k, r, sp, n in rows))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -479,15 +494,19 @@ def main() -> int:
     (c1, p1, b1, by1), (c2, p2, b2, by2) = (times["k1"]["conv_1"],
                                             times["k1"]["conv_2"])
     k2_ms, k2_plain, k2_bound = times["k2"]
+    k1_ms = (c1 + c2) / 2
     kernels = [
         {"name": "resblock_conv3x3", "route": "cuda",
          "source": "joshupscale_torch/csrc/resblock_conv.cu",
          "replaces": "joshupscale_tpu/nn/resblock_pallas.py:84",
          "launches": k1_launches, "path": "serving", "max_abs_err": k1_err,
-         "ms": (c1 + c2) / 2, "plain_ms": (p1 + p2) / 2,
+         "ms": k1_ms, "plain_ms": (p1 + p2) / 2,
          "bound_ms": (b1 + b2) / 2,
          "bound_by": by2 if b2 >= b1 else by1,
-         "library_ms": times["lib_ms"]},
+         "library_ms": times["lib_ms"],
+         "share_of_bf16_peak":
+             k1_flops(1, H, W, 64) / (k1_ms * 1e-3) / PEAK_BF16_FLOPS,
+         "fraction_of_bound": (b1 + b2) / 2 / k1_ms},
         {"name": "d2s_display_u8", "route": "cuda",
          "source": "joshupscale_torch/csrc/display_u8.cu",
          "replaces": "joshupscale_tpu/ops/display.py:35",

@@ -15,19 +15,31 @@
 // What bounds it on an H100: at the main path's shape (1, 270, 480, 64)
 // bf16 a conv is 9.56 GFLOP (9.7 us at 989 TFLOP/s) against 33-50 MB of
 // activations (10-15 us at 3.35 TB/s): both bounds are close, so the
-// kernel must keep the reduction on the tensor cores and read every
-// activation byte once.  Design (simple first, a wgmma/TMA redesign is
-// queued):
-//   * bf16: implicit GEMM on mma.sync.m16n8k16 (bf16 in, f32
-//     accumulate).  A CTA owns an 8x16-pixel output tile and all C
-//     output channels; it stages the (8+2)x(16+2)xC input halo in shared
-//     memory (SAME zero padding = bounds checks on the halo load) and
-//     keeps the whole 9*C x C weight matrix resident.  The grid is
-//     persistent (a few CTAs per SM walk the tiles), so the weights are
-//     read from L2 once per CTA, not once per tile.  Four warps, each
-//     two tile rows (2 m16 fragments) x C output channels.  Rows of both
-//     shared arrays are padded by 8 elements, which makes every 32-bit
-//     fragment load bank-conflict free for C in {32, 48, 64}.
+// kernel must run the reduction at the tensor cores' full rate while it
+// moves every activation byte once, and overlap the two.  Only wgmma
+// reaches that rate, so:
+//   * bf16: implicit GEMM on the Hopper core of wgmma_tma.cuh, M = output
+//     pixels, N = C output channels, K = 9 taps x C/16 k16 steps.  A
+//     persistent CTA (one an SM) walks 8 x 16-pixel output tiles.
+//     - TMA does every copy.  One producer thread loads each tile's
+//       (8+2) x (16+2) input halo (a ring of 4) and its residual, and
+//       the weights once; the SAME padding and the ragged edges are
+//       TMA's zero fill of out-of-bound coordinates.  Every shared tile
+//       holds 128-byte rows of 64 channels (zeros past C), 128-byte
+//       swizzled.
+//     - Taps are descriptor offsets.  An M-block of 64 rows is 8 image
+//       rows x 8 pixels of the halo (SBO = one halo row); a tap (dy, dx)
+//       moves the A descriptor's start by dy halo rows and dx 128-byte
+//       pixel rows, and k16 steps by 32 bytes.  No patch is built.  The
+//       swizzle is a function of the absolute shared address, so a start
+//       off a 1024-byte boundary reads what TMA wrote there.  The weights
+//       are the K-major B operand, [tap][co][ci].
+//     - Two consumer warpgroups in ping-pong: each owns whole tiles (two
+//       M-blocks, 9 x C/16 x 2 wgmma m64nCk16) and they take turns to
+//       issue, so one's epilogue runs under the other's products.
+//     - Epilogue in the tile's shared staging buffer, in place over the
+//       residual TMA brought there, then one TMA store, which clips the
+//       rows >= H and columns >= W.
 //   * f32: a direct CUDA-core conv (one thread per output pixel, all C
 //     outputs in registers, weights staged tap by tap) -- not on the
 //     main path, kept exact in f32.
@@ -38,18 +50,28 @@
 #include <stdint.h>
 
 #include "warp_mma.cuh"
+#include "wgmma_tma.cuh"
 
 namespace {
 
+// f32 direct conv tile.
 constexpr int TILE_H = 8;
 constexpr int TILE_W = 16;
 constexpr int HALO_H = TILE_H + 2;
 constexpr int HALO_W = TILE_W + 2;
-constexpr int WARPS = TILE_H / 2;
-constexpr int THREADS = WARPS * 32;
 constexpr int ACT_RELU = 0;
 constexpr int ACT_LRELU = 1;
 constexpr int MAX_DEVICES = 64;
+
+// bf16 implicit-GEMM tile of one consumer warpgroup: 8 x 16 output
+// pixels = 2 M-blocks of 8 x 8.
+constexpr int BT_H = 8;
+constexpr int BT_W = 16;
+constexpr int HALO_PX = BT_W + 2;
+constexpr int CONSUMERS = 2;                        // warpgroups
+constexpr int BF16_THREADS = CONSUMERS * 128 + 32;  // + one producer warp
+constexpr int HALO_STAGES = 3;
+constexpr int SLOTS = 2 * CONSUMERS;                // staging tiles, two each
 
 __device__ __forceinline__ float activate(float v, int act, float alpha) {
   if (act == ACT_RELU) return fmaxf(v, 0.0f);
@@ -58,141 +80,240 @@ __device__ __forceinline__ float activate(float v, int act, float alpha) {
 
 template <int C>
 struct Geom {
-  static constexpr int PAD = 8;
-  static constexpr int XS = C + PAD;        // halo pixel stride (elements)
-  static constexpr int K = 9 * C;
-  static constexpr int WS = K + PAD;        // weight row stride (elements)
-  static constexpr int HALO_ELEMS = HALO_H * HALO_W * XS;
-  static constexpr int W_ELEMS = C * WS;
-  static constexpr size_t SMEM =
-      size_t(HALO_ELEMS + W_ELEMS) * sizeof(__nv_bfloat16);
+  // Every tile of shared memory holds 128-byte rows of 64 channels (zeros
+  // past C), 128-byte swizzled as TMA writes them.
+  static constexpr int ROW = HALO_PX * 128;             // halo row, bytes
+  static constexpr int HALO_BYTES = (BT_H + 2) * ROW;   // 23,040
+  static constexpr int HALO_STRIDE = (HALO_BYTES + 1023) / 1024 * 1024;
+  static constexpr int W_BYTES = 9 * C * 128;           // 73,728 at C = 64
+  static constexpr int TILE_BYTES = BT_H * BT_W * 128;  // staging, 16,384
+  static constexpr size_t SMEM = 1024 + W_BYTES + SLOTS * TILE_BYTES +
+                                 HALO_STAGES * HALO_STRIDE +
+                                 2 * C * sizeof(float) +
+                                 (1 + 2 * HALO_STAGES + 2 * SLOTS +
+                                  CONSUMERS) * sizeof(uint64_t);
+  static_assert(W_BYTES % 1024 == 0 && TILE_BYTES % 1024 == 0,
+                "swizzled tiles must stay 1024-byte aligned");
+};
+
+// Maps of one launch: x (halo), w (B operand), the residual and y
+// (staging tiles); all bf16 with 128-byte rows, swizzled.
+struct Maps {
+  CUtensorMap x, w, res, y;
 };
 
 template <int C>
-__global__ void __launch_bounds__(THREADS)
-conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                    const __nv_bfloat16* __restrict__ w,
+__global__ void __launch_bounds__(BF16_THREADS, 1)
+conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ scale,
-                    const float* __restrict__ offset,
-                    const __nv_bfloat16* __restrict__ residual,
-                    __nv_bfloat16* __restrict__ y,
+                    const float* __restrict__ offset, int has_residual,
                     int n_img, int H, int W, int act, float alpha) {
   using G = Geom<C>;
-  constexpr int NT = C / 8;    // n8 fragments (output channels)
-  constexpr int KC = C / 16;   // k16 steps per tap
-  constexpr int VEC = C / 8;   // uint4 vectors per pixel
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* halo = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ws = halo + G::HALO_ELEMS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ws =
+      smem_raw + ((1024 - (jt::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* outs = ws + G::W_BYTES;
+  unsigned char* halo = outs + SLOTS * G::TILE_BYTES;
+  float* s_scale =
+      reinterpret_cast<float*>(halo + HALO_STAGES * G::HALO_STRIDE);
+  float* s_offset = s_scale + C;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(s_offset + C);
+  uint64_t* full = wbar + 1;                    // halo landed
+  uint64_t* halo_free = full + HALO_STAGES;     // products done with it
+  uint64_t* res_full = halo_free + HALO_STAGES;  // residual in a staging tile
+  uint64_t* out_free = res_full + SLOTS;         // store done reading it
+  uint64_t* turn = out_free + SLOTS;             // a warpgroup's turn to issue
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // groupID
-  const int t = lane & 3;    // thread in group
+  for (int i = tid; i < C; i += BF16_THREADS) {
+    s_scale[i] = scale[i];
+    s_offset[i] = offset[i];
+  }
+  if (tid == 0) {
+    jt::mbar_init(wbar, 1);
+    for (int s = 0; s < HALO_STAGES; ++s) {
+      jt::mbar_init(&full[s], 1);
+      jt::mbar_init(&halo_free[s], 1);
+    }
+    for (int s = 0; s < SLOTS; ++s) {
+      jt::mbar_init(&res_full[s], 1);
+      jt::mbar_init(&out_free[s], 1);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) jt::mbar_init(&turn[w], 1);
+    jt::mbar_init_fence();
+  }
+  __syncthreads();
 
-  // Resident weights: ws[co * WS + k], k = tap * C + ci.
-  for (int i = tid; i < C * (G::K / 8); i += THREADS) {
-    const int co = i / (G::K / 8);
-    const int v = i % (G::K / 8);
-    *reinterpret_cast<uint4*>(ws + co * G::WS + v * 8) =
-        *reinterpret_cast<const uint4*>(w + size_t(co) * G::K + v * 8);
+  // This CTA's tiles, k = 0, 1, ...: tile blockIdx.x + k gridDim.x, taken
+  // by warpgroup k % 2 as its tile i = k / 2, its halo in stage
+  // k % HALO_STAGES, its residual and output in staging slot
+  // 2 (k % 2) + i % 2.
+  const int tiles_y = (H + BT_H - 1) / BT_H;
+  const int tiles_x = (W + BT_W - 1) / BT_W;
+  const int num_tiles = n_img * tiles_y * tiles_x;
+  const int n_local =
+      int(blockIdx.x) < num_tiles
+          ? (num_tiles - 1 - int(blockIdx.x)) / int(gridDim.x) + 1
+          : 0;
+  auto origin = [&](int k, int& img, int& ty0, int& tx0) {
+    const int tile = blockIdx.x + k * gridDim.x;
+    img = tile / (tiles_y * tiles_x);
+    const int rem = tile % (tiles_y * tiles_x);
+    ty0 = (rem / tiles_x) * BT_H;
+    tx0 = (rem % tiles_x) * BT_W;
+  };
+
+  if (tid >= CONSUMERS * 128) {  // the producer warp; one thread issues
+    if (tid == CONSUMERS * 128) {
+      jt::mbar_expect_tx(wbar, G::W_BYTES);
+      jt::tma_load_3d(ws, &maps.w, wbar, 0, 0, 0);
+      auto load_halo = [&](int k) {
+        const int s = k % HALO_STAGES;
+        jt::mbar_wait(&halo_free[s], ((k / HALO_STAGES) & 1) ^ 1);
+        int img, ty0, tx0;
+        origin(k, img, ty0, tx0);
+        jt::mbar_expect_tx(&full[s], G::HALO_BYTES);
+        jt::tma_load_4d(halo + s * G::HALO_STRIDE, &maps.x, &full[s], 0,
+                        tx0 - 1, ty0 - 1, img);
+      };
+      // Halos run two tiles ahead of residuals: a residual waits for the
+      // store from its staging slot two of its warpgroup's tiles back, a
+      // halo only for the products of the tile before.
+      for (int k = 0; k < 2 && k < n_local; ++k) load_halo(k);
+      for (int k = 0; k < n_local; ++k) {
+        if (k + 2 < n_local) load_halo(k + 2);
+        if (has_residual) {
+          const int i = k / CONSUMERS;
+          const int slot = 2 * (k % CONSUMERS) + (i & 1);
+          jt::mbar_wait(&out_free[slot], ((i >> 1) & 1) ^ 1);
+          int img, ty0, tx0;
+          origin(k, img, ty0, tx0);
+          jt::mbar_expect_tx(&res_full[slot], G::TILE_BYTES);
+          jt::tma_load_4d(outs + slot * G::TILE_BYTES, &maps.res,
+                          &res_full[slot], 0, tx0, ty0, img);
+        }
+      }
+    }
+    return;
   }
 
-  const int tiles_y = (H + TILE_H - 1) / TILE_H;
-  const int tiles_x = (W + TILE_W - 1) / TILE_W;
-  const int num_tiles = n_img * tiles_y * tiles_x;
-
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
-    const int img = tile / (tiles_y * tiles_x);
-    const int rem = tile % (tiles_y * tiles_x);
-    const int ty0 = (rem / tiles_x) * TILE_H;
-    const int tx0 = (rem % tiles_x) * TILE_W;
-
-    __syncthreads();  // previous tile's fragment reads are done
-    for (int i = tid; i < HALO_H * HALO_W * VEC; i += THREADS) {
-      const int pix = i / VEC;
-      const int v = i % VEC;
-      const int gy = ty0 + pix / HALO_W - 1;
-      const int gx = tx0 + pix % HALO_W - 1;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        val = *reinterpret_cast<const uint4*>(
-            x + ((size_t(img) * H + gy) * W + gx) * C + v * 8);
-      }
-      *reinterpret_cast<uint4*>(halo + pix * G::XS + v * 8) = val;
-    }
-    __syncthreads();
-
-    float acc[2][NT][4];
+  // Two consumer warpgroups in ping-pong: each owns whole tiles, and they
+  // take turns to issue their products, so one warpgroup's epilogue runs
+  // while the other's products keep the tensor cores busy.
+  const int wg = tid >> 7;
+  const int wt = tid & 127;
+  const int warp = wt >> 5;
+  const int lane = wt & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const uint32_t w0 = jt::smem_addr(ws);
+  // This thread's output channels are 8j + 2t, +1: their scale and offset
+  // stay in registers.
+  float2 sc[C / 8], of[C / 8];
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf)
+  for (int j = 0; j < C / 8; ++j) {
+    sc[j] = *reinterpret_cast<const float2*>(s_scale + j * 8 + t * 2);
+    of[j] = *reinterpret_cast<const float2*>(s_offset + j * 8 + t * 2);
+  }
+  float acc[2][C / 2];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc[mf][nt][r] = 0.0f;
+    for (int i = 0; i < C / 2; ++i) acc[m][i] = 0.0f;
 
-#pragma unroll 1
+  jt::mbar_wait(wbar, 0);
+  int i = 0;  // this warpgroup's tile count
+  for (int k = wg; k < n_local; k += CONSUMERS, ++i) {
+    int img, ty0, tx0;
+    origin(k, img, ty0, tx0);
+    const int stage = k % HALO_STAGES;
+
+    jt::mbar_wait(&full[stage], (k / HALO_STAGES) & 1);
+    jt::mbar_wait(&turn[wg], wg == 0 ? (i & 1) ^ 1 : i & 1);
+    const uint32_t h0 = jt::smem_addr(halo + stage * G::HALO_STRIDE);
+    jt::fence_operands(acc[0]);
+    jt::fence_operands(acc[1]);
+    jt::wgmma_fence();
+#pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int dy = tap / 3;
       const int dx = tap % 3;
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t a[2][4];
+      for (int kk = 0; kk < C / 16; ++kk) {
+        // B: the C output channels x 16 input channels of this tap.
+        const uint64_t b = jt::make_desc(w0 + tap * C * 128 + kk * 32, 0,
+                                         1024);
 #pragma unroll
-        for (int mf = 0; mf < 2; ++mf) {
-          const int row = warp * 2 + mf;  // tile row of this fragment
-          const __nv_bfloat16* p0 =
-              halo + ((row + dy) * HALO_W + g + dx) * G::XS + kc * 16 + t * 2;
-          const __nv_bfloat16* p1 = p0 + 8 * G::XS;  // pixel g + 8
-          a[mf][0] = *reinterpret_cast<const uint32_t*>(p0);
-          a[mf][1] = *reinterpret_cast<const uint32_t*>(p1);
-          a[mf][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-          a[mf][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const __nv_bfloat16* q =
-              ws + (nt * 8 + g) * G::WS + tap * C + kc * 16 + t * 2;
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(q);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(q + 8);
-          jt::mma_bf16(acc[0][nt], a[0], b0, b1);
-          jt::mma_bf16(acc[1][nt], a[1], b0, b1);
+        for (int m = 0; m < 2; ++m) {
+          // A: M-block m's 8 rows x 8 pixels, shifted by the tap: dy halo
+          // rows, dx 128-byte pixel rows (the swizzle follows the
+          // absolute address, so any whole row is a valid start).
+          const uint64_t a = jt::make_desc(
+              h0 + dy * G::ROW + (m * 8 + dx) * 128 + kk * 32, 0, G::ROW);
+          jt::wgmma<C, 0>(acc[m], a, b, (tap | kk) != 0);
         }
       }
     }
+    jt::wgmma_commit();
+    if (wt == 0) jt::mbar_arrive(&turn[wg ^ 1]);
+    jt::wgmma_wait<0>();
+    jt::fence_operands(acc[0]);
+    jt::fence_operands(acc[1]);
+    const int slot = 2 * wg + (i & 1);
+    unsigned char* tile_out = outs + slot * G::TILE_BYTES;
+    if (wt == 0) {
+      jt::mbar_arrive(&halo_free[stage]);
+      // The last tile's store, issued a tile ago, has read its slot: free
+      // it for the residual two tiles on.  This slot's own last store
+      // (two tiles back) was waited for then.
+      jt::bulk_wait_read<0>();
+      if (i > 0) jt::mbar_arrive(&out_free[slot ^ 1]);
+    }
+    if (has_residual) jt::mbar_wait(&res_full[slot], (i >> 1) & 1);
 
-    // Epilogue: c0,c1 -> pixel g, c2,c3 -> pixel g + 8; channels
-    // nt*8 + 2t + {0, 1}.
+    // Epilogue in the staging tile, in place over the residual: the
+    // accumulator row 16 warp + g + 8 half of M-block m is pixel
+    // (2 warp + half, 8 m + g) of the 8 x 16 tile; d[4j + 2 half + e] is
+    // channel 8j + 2t + e, whose 16-byte chunk j sits at chunk j ^ g of
+    // the pixel's swizzled 128-byte row.
 #pragma unroll
-    for (int mf = 0; mf < 2; ++mf) {
-      const int oy = ty0 + warp * 2 + mf;
-      if (oy >= H) continue;
+    for (int m = 0; m < 2; ++m) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int ox = tx0 + g + half * 8;
-        if (ox >= W) continue;
-        const size_t base = ((size_t(img) * H + oy) * W + ox) * C;
+        unsigned char* row =
+            tile_out + ((warp * 2 + half) * BT_W + m * 8 + g) * 128 + t * 4;
+        // All of the row's residual loads go ahead of its stores, which
+        // the compiler may not reorder across.
+        __nv_bfloat162 res[C / 8];
+        if (has_residual) {
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int co = nt * 8 + t * 2;
-          float v0 = acc[mf][nt][half * 2 + 0] * __ldg(scale + co) +
-                     __ldg(offset + co);
-          float v1 = acc[mf][nt][half * 2 + 1] * __ldg(scale + co + 1) +
-                     __ldg(offset + co + 1);
-          if (residual != nullptr) {
-            const __nv_bfloat162 r =
-                *reinterpret_cast<const __nv_bfloat162*>(residual + base + co);
-            v0 += __bfloat162float(r.x);
-            v1 += __bfloat162float(r.y);
+          for (int j = 0; j < C / 8; ++j)
+            res[j] = *reinterpret_cast<const __nv_bfloat162*>(
+                row + ((j ^ g) << 4));
+        }
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          float v0 = acc[m][4 * j + 2 * half] * sc[j].x + of[j].x;
+          float v1 = acc[m][4 * j + 2 * half + 1] * sc[j].y + of[j].y;
+          if (has_residual) {
+            v0 += __bfloat162float(res[j].x);
+            v1 += __bfloat162float(res[j].y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(y + base + co) =
+          *reinterpret_cast<__nv_bfloat162*>(row + ((j ^ g) << 4)) =
               __floats2bfloat162_rn(activate(v0, act, alpha),
                                     activate(v1, act, alpha));
         }
       }
     }
+    jt::fence_proxy_async();
+    jt::named_sync(1 + wg, 128);
+    if (wt == 0) {
+      // TMA clips the rows >= H and columns >= W.
+      jt::tma_store_4d(&maps.y, tile_out, 0, tx0, ty0, img);
+      jt::bulk_commit();
+    }
   }
+  if (wt == 0) jt::bulk_wait<0>();
 }
 
 template <int C>
@@ -268,19 +389,39 @@ cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
                         int n, int h, int wd, int act, float alpha,
                         cudaStream_t stream) {
   using G = Geom<C>;
+  Maps maps = {};
+  // x (n, h, wd, C): a box is one tile's (8+2) x (16+2) halo.
+  const uint64_t x_dims[4] = {C, uint64_t(wd), uint64_t(h), uint64_t(n)};
+  const uint64_t x_strides[4] = {2, C * 2, uint64_t(wd) * C * 2,
+                                 uint64_t(h) * wd * C * 2};
+  const uint32_t x_box[4] = {64, HALO_PX, BT_H + 2, 1};
+  // w OHWI (C, 3, 3, C) seen as [tap][co][ci]: 128-byte rows of 64 input
+  // channels (zeros past C), swizzled: the K-major B operand.
+  const uint64_t w_dims[3] = {C, C, 9};
+  const uint64_t w_strides[3] = {2, 9 * C * 2, C * 2};
+  const uint32_t w_box[3] = {64, C, 9};
+  // Residual and y (n, h, wd, C): a box is one 8 x 16-pixel tile.
+  const uint64_t t_dims[4] = {C, uint64_t(wd), uint64_t(h), uint64_t(n)};
+  const uint64_t t_strides[4] = {2, C * 2, uint64_t(wd) * C * 2,
+                                 uint64_t(h) * wd * C * 2};
+  const uint32_t t_box[4] = {64, BT_W, BT_H, 1};
+  cudaError_t e =
+      jt::encode_bf16(&maps.x, x, 4, x_dims, x_strides, x_box);
+  if (e == cudaSuccess)
+    e = jt::encode_bf16(&maps.w, w, 3, w_dims, w_strides, w_box);
+  if (e == cudaSuccess)
+    e = jt::encode_bf16(&maps.y, y, 4, t_dims, t_strides, t_box);
+  if (e == cudaSuccess && residual != nullptr)
+    e = jt::encode_bf16(&maps.res, residual, 4, t_dims, t_strides, t_box);
+  if (e != cudaSuccess) return e;
   static int grid_cap[MAX_DEVICES] = {};
-  cudaError_t e;
-  const int cap = jt::persistent_grid(conv3x3_bf16_kernel<C>, THREADS,
+  const int cap = jt::persistent_grid(conv3x3_bf16_kernel<C>, BF16_THREADS,
                                       G::SMEM, grid_cap, MAX_DEVICES, &e);
   if (cap == 0) return e;
-  const int tiles = n * ((h + TILE_H - 1) / TILE_H) *
-                    ((wd + TILE_W - 1) / TILE_W);
+  const int tiles = n * ((h + BT_H - 1) / BT_H) * ((wd + BT_W - 1) / BT_W);
   const int grid = tiles < cap ? tiles : cap;
-  conv3x3_bf16_kernel<C><<<grid, THREADS, G::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), scale, offset,
-      static_cast<const __nv_bfloat16*>(residual),
-      static_cast<__nv_bfloat16*>(y), n, h, wd, act, alpha);
+  conv3x3_bf16_kernel<C><<<grid, BF16_THREADS, G::SMEM, stream>>>(
+      maps, scale, offset, residual != nullptr, n, h, wd, act, alpha);
   return cudaGetLastError();
 }
 

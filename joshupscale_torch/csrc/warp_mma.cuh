@@ -1,5 +1,6 @@
-// Warp-level tensor-core and copy helpers shared by the bf16 kernels
-// (K1 resblock_conv.cu, P1 probe_dot.cu, P2 probe_patch_dot.cu).
+// Warp-level tensor-core and copy helpers of P2 (probe_patch_dot.cu),
+// and the shared-address and persistent-grid helpers every bf16 kernel
+// uses (K1 and P1 build on wgmma_tma.cuh).
 //
 // mma.sync.m16n8k16 (bf16 in, f32 accumulate) fragment layouts, with
 // g = lane / 4 and t = lane % 4:

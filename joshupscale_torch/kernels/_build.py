@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -83,6 +84,61 @@ def build_all(names: Iterable[str] = None) -> None:
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def _demangle(log: str, nvcc: str) -> Dict[str, str]:
+    """{mangled kernel name in ``log``: a short readable one}."""
+    names = sorted(set(re.findall(r"_Z\w+", log)))
+    filt = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if not names or not os.access(filt, os.X_OK):
+        return {n: n for n in names}
+    lines = subprocess.run([filt, *names], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    out = {}
+    for n, d in zip(names, lines):
+        for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)",
+                      "(bool)", "void "):
+            d = d.replace(noise, "")
+        out[n] = d.split("(")[0]
+    return out
+
+
+def resource_usage() -> Dict[str, list]:
+    """``ptxas -v`` for every source, compiled to a throw-away cubin, all
+    at once: {source: [(kernel, registers, spilled bytes, notes)]}; the
+    notes are ptxas's remarks on the kernel's wgmma (an injected wait or
+    fence, serialisation)."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    nvcc = find_nvcc()
+    procs = {n: subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-cubin", "-Xptxas", "-v",
+         "-o", os.devnull, str(CSRC / f"{n}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for n in names}
+    out = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0].decode()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{log}")
+        short = _demangle(log, nvcc)
+        notes: Dict[str, list] = {}
+        for m in re.finditer(r"\((C\d+)\) ([^\n]*?) in function '(\w+)'",
+                             log):
+            notes.setdefault(short[m.group(3)], []).append(
+                f"{m.group(1)} {m.group(2)}")
+        rows, kernel, spill = [], None, 0
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel, spill = short[m.group(1)], 0
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and kernel:
+                rows.append((kernel, int(m.group(1)), spill,
+                             notes.get(kernel, [])))
+        out[name] = rows
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

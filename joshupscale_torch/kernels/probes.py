@@ -6,11 +6,15 @@ splits the res-block conv's cost (K1) into its parts at K1's shape,
 
 - P1 ``probe_dot`` replaces ``tools/pallas_conv_probe.py probe_dot`` ->
   ``kernel``: the product alone, ``bf16(A_blk @ B)`` with A (M, 576)
-  and B (576, N).  CUDA source ``csrc/probe_dot.cu``.  Bound by
-  operations with A resident (9.7 us for N = 64 on an H100), by bytes
+  and B (576, N).  CUDA source ``csrc/probe_dot.cu``, on the Hopper core
+  of ``csrc/wgmma_tma.cuh``: TMA brings every operand into shared memory
+  in 128-byte swizzled boxes and ``wgmma`` multiplies them there.  Bound
+  by operations with A resident (9.7 us for N = 64 on an H100), by bytes
   with A streamed (149 MB of A, about 49 us).  Resident mode keeps A_blk
   in shared memory, spread over the CTAs, as the TPU kernel keeps it in
-  VMEM: it times the product with no operand traffic.
+  VMEM: it times the product with no operand traffic.  Streamed mode
+  pipelines A through a TMA ring while B stays resident.  TMA takes
+  operands whose base addresses are multiples of 16 bytes.
 - P2 ``probe_patch_dot`` replaces ``tools/pallas_conv_probe.py
   probe_patch_dot`` -> ``kernel``: the 9-tap patch of a flat padded
   buffer times the (576, 64) weights, relu, and with ``pair`` the second

@@ -3,16 +3,23 @@
 Source note.  Replaces the TPU kernel
 ``joshupscale_tpu/nn/resblock_pallas.py:_conv_kernel`` (built by
 ``_build_conv_call``, driven by ``res_block_chain``).  The CUDA source is
-``joshupscale_torch/csrc/resblock_conv.cu``: for bf16 an implicit GEMM on
-``mma.sync`` tensor-core instructions (f32 accumulate), one CTA per
-8x16-pixel tile with the input halo in shared memory and the weights
-resident, on a persistent grid; for f32 a direct CUDA-core conv.  At the
-main path's shape, (1, 270, 480, 64) bf16, the card's bound is about
-10 us (flops) to 15 us (bytes) per launch; the kernel reads each
-activation once per tile (plus a 2-pixel halo) and keeps the reduction
-on the tensor cores.  The Pallas kernel's flat pad ring, column mask and
-persistent ring scratch served the TPU's sequential grid and VMEM; here
-SAME padding is a bounds check on the halo load.
+``joshupscale_torch/csrc/resblock_conv.cu`` on the Hopper core of
+``csrc/wgmma_tma.cuh``.  At the main path's shape, (1, 270, 480, 64)
+bf16, the card's bound is about 10 us (operations, and the bytes of
+conv_1) to 15 us (the bytes of conv_2, which adds a residual) per
+launch, so the reduction must run on the tensor cores at full rate while
+every activation byte moves once.  For bf16 the kernel is an implicit
+GEMM on ``wgmma`` (M = pixels, N = C output channels, K = 9 taps x C):
+TMA brings each 8 x 16-pixel tile's input halo and residual into shared
+memory (SAME padding and ragged edges are TMA's zero fill), a tap is
+only a shift of the ``wgmma`` descriptor into the halo (no patch is
+built), the weights stay resident, two warpgroups take turns so one's
+epilogue overlaps the other's products, and a TMA store writes the tile
+back.  For f32 it is a direct CUDA-core conv.  The Pallas kernel's flat
+pad ring, column mask and persistent ring scratch served the TPU's
+sequential grid and VMEM; here they are TMA's zero fill and an mbarrier
+ring.  TMA takes operands whose base addresses are multiples of 16
+bytes, which the wrapper checks.
 
 ``resblock_conv3x3`` launches the kernel for CUDA tensors and runs
 ``resblock_conv3x3_plain`` for CPU tensors; there is no fallback from

@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from joshupscale_torch import DeviceLike, resolve_device
 from joshupscale_torch.models.fnet import prepare_flow_resnet
 from joshupscale_torch.models.generator import prepare_generator_resnet
 from joshupscale_torch.ops.image import postprocess, preprocess
@@ -84,9 +85,11 @@ class InferenceModel:
         return self.num_flow_frames - 1
 
     def init_state(self, batch_size: int = 1, dtype=torch.float32,
-                   device="cpu") -> State:
+                   device: DeviceLike = None) -> State:
         """Zero recurrent state: s2d ``pre_gen`` and the last-frames
-        shift register (current frame first)."""
+        shift register (current frame first), on ``device`` (default:
+        the CUDA device, as ``resolve_device`` reads it)."""
+        device = resolve_device(device)
         h, w = self.frame_height, self.frame_width
         return {
             "pre_gen": torch.zeros((batch_size, h, w, 48), dtype=dtype,

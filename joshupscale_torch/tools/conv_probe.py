@@ -205,16 +205,18 @@ def check(probe: Probe) -> float:
 
 def run(variants, tile: int, device, log=print) -> dict:
     """Check and time each variant, its plain version and its library
-    yardstick.  Logs one line each and returns {name: {"ms", "share",
-    "bound_ms", "bound_by", "library_ms", "library_call", "plain_ms",
-    "max_abs_err"}} (None where there is nothing to measure)."""
+    yardstick.  Logs one line each and returns {name: {"ms",
+    "share_of_bf16_peak", "fraction_of_bound", "bound_ms", "bound_by",
+    "library_ms", "library_call", "plain_ms", "max_abs_err"}} (None where
+    there is nothing to measure)."""
     out = {}
     for name in variants:
         probe = make_probe(name, tile, device)
         err = check(probe) if probe.expect else None
         ms = cuda_time_ms(probe.run, reps=20)
         bound, by = probe.bound_ms()
-        rec = {"ms": ms, "share": probe.share_of_peak(ms), "bound_ms": bound,
+        rec = {"ms": ms, "share_of_bf16_peak": probe.share_of_peak(ms),
+               "fraction_of_bound": bound / ms, "bound_ms": bound,
                "bound_by": by, "library_call": probe.library_call,
                "library_ms": (cuda_time_ms(probe.library, reps=20)
                               if probe.library else None),
@@ -228,9 +230,10 @@ def run(variants, tile: int, device, log=print) -> dict:
             if rec[key] is not None)
         if err is not None:
             extra += f"; vs plain max |diff| {err:.4g}"
-        log(f"{name:16s}: {ms * 1e3:9.2f} us  ({rec['share']:6.1%} of the "
-            f"989 TFLOP/s bf16 peak; bound {bound * 1e3:.2f} us, {by}"
-            f"{extra})")
+        log(f"{name:16s}: {ms * 1e3:9.2f} us  "
+            f"({rec['share_of_bf16_peak']:6.1%} of the 989 TFLOP/s bf16 "
+            f"peak; bound {bound * 1e3:.2f} us, {by}, "
+            f"{rec['fraction_of_bound']:.1%} of its rate{extra})")
     return out
 
 

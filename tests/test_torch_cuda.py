@@ -63,13 +63,23 @@ def _operands(gen, c, dtype, shape, device):
             mk(n, h, w, c).to(device, dtype))
 
 
-@pytest.mark.parametrize("c", [32, 48, 64])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_resblock_kernel_matches_plain(gen, cuda, c, dtype):
+# (2, 19, 37) cuts across the bf16 kernel's 8 x 16 tiles on both axes,
+# (1, 5, 7) is narrower and shorter than one tile, (1, 270, 480) is the
+# main path's shape (H = 270 is not a multiple of 8).
+_K1_CASES = ([(c, dt, (2, 19, 37)) for c in (32, 48, 64)
+              for dt in (torch.bfloat16, torch.float32)]
+             + [(c, torch.bfloat16, (1, 5, 7)) for c in (32, 48, 64)]
+             + [(64, torch.bfloat16, (1, 270, 480))])
+
+
+@pytest.mark.parametrize("c,dtype,shape", _K1_CASES,
+                         ids=[f"{c}-{str(dt)[6:]}-{'x'.join(map(str, s))}"
+                              for c, dt, s in _K1_CASES])
+def test_resblock_kernel_matches_plain(gen, cuda, c, dtype, shape):
     """Both sum in f32 and round once, in another order: f32 within
     1e-4, bf16 within 1/64 (a few bf16 ulps), relative to 1 + |ref|."""
     tol = 1e-4 if dtype == torch.float32 else 1 / 64
-    x, w, s, t, r = _operands(gen, c, dtype, (2, 19, 37), cuda)
+    x, w, s, t, r = _operands(gen, c, dtype, shape, cuda)
     for res, act in ((None, "relu"), (r, "relu"), (r, "lrelu")):
         before = resblock_conv3x3.launches
         got = resblock_conv3x3(x, w, s, t, res, act, 0.3)
@@ -80,12 +90,26 @@ def test_resblock_kernel_matches_plain(gen, cuda, c, dtype):
                      <= tol * (1 + ref.abs())).all())
 
 
+def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of t whose data starts nbytes past a 16-byte
+    boundary."""
+    k = nbytes // t.element_size()
+    flat = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = flat[k:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def test_resblock_kernel_refuses_bad_operands(gen, cuda):
     x, w, s, t, _ = _operands(gen, 64, torch.bfloat16, (1, 8, 16), cuda)
     with pytest.raises(ValueError):
         resblock_conv3x3(x.transpose(1, 2), w, s, t)  # not contiguous
     with pytest.raises(ValueError):
         resblock_conv3x3(x, w.cpu(), s, t)  # mixed devices
+    with pytest.raises(ValueError):
+        resblock_conv3x3(_offset(x, 8), w, s, t)  # TMA needs 16-byte bases
+    with pytest.raises(ValueError):
+        resblock_conv3x3(x, _offset(w, 8), s, t)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -161,6 +185,10 @@ def test_probe_kernels_refuse_bad_operands(gen, cuda):
     misaligned = flat[1:1 + 256 * K].view(256, K)
     with pytest.raises(ValueError):
         probe_dot(misaligned, b, 64)  # contiguous, 2 bytes off
+    with pytest.raises(ValueError):
+        probe_dot(_offset(a, 8), b, 64)  # TMA needs 16-byte bases
+    with pytest.raises(ValueError):
+        probe_dot(a, _offset(b, 8), 64, resident=False)
     with pytest.raises(ValueError):
         probe_dot(_bf16(gen, (K, 256), cuda).t(), b, 64)  # not contiguous
     with pytest.raises(ValueError):

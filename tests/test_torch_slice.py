@@ -222,6 +222,18 @@ def test_bad_inputs_and_no_cuda_raise(rng, monkeypatch):
         Engine(built.obj, built.params)
 
 
+def test_init_state_runs_on_the_card_unless_asked(monkeypatch):
+    """Like every entry point, the zero state goes to the CUDA device
+    unless the caller names the CPU."""
+    model = create_models(_config())["inference"].obj
+    state = model.init_state(2, device="cpu")
+    assert state["pre_gen"].shape == (2, H, W, 48)
+    assert all(t.device.type == "cpu" for t in state["last_frames"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.init_state(1)
+
+
 @pytest.mark.parametrize("option", [
     {"s2d_mode": False}, {"remove_flow": True}, {"u8_state": True},
     {"output_flow": True}, {"normalize_brightness": True},
