@@ -15,9 +15,11 @@ kernel with CUDA events.  Then it drives the second path, the conv
 probe (``joshupscale_torch.tools.conv_probe.run``), which holds P1 and
 P2 against their plain versions at full shape (all five variants) and
 times them; checks that it went through P1 and P2; and prints K1, P2,
-P1 and cuDNN side by side at the res-block conv's shape.  K1's and the
-probes' lines and kernel entries carry the share of the bf16 peak and
-the fraction of the bound's rate.
+P1 and cuDNN side by side at the res-block conv's shape, and P2's
+fused pair (a whole res block in one launch) beside K1's two launches.
+K1's and the probes' lines and kernel entries carry the share of the
+bf16 peak and the fraction of the bound's rate.  Fails if P2 spills
+registers.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
@@ -347,10 +349,12 @@ def phase_times(torch, engine, frames, device):
     }
 
 
-def phase_conv_probe(torch, device, k1_conv1_ms, conv_ms):
+def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
     """The second path: the conv probe tool's run over every variant
     (each held against its plain version at full shape, then timed), its
-    kernel launches counted; then K1 against its parts."""
+    kernel launches counted; then K1 against its parts, and P2's pair
+    against K1's two launches of a res block (``k1_conv_ms``: conv_1's
+    and conv_2's times, this run)."""
     from joshupscale_torch.tools import conv_probe
 
     kernels = all_kernels()
@@ -366,11 +370,16 @@ def phase_conv_probe(torch, device, k1_conv1_ms, conv_ms):
         raise AssertionError("the conv probe path must launch P1 and P2 "
                              "and no serving kernel")
     us = lambda name: res[name]["ms"] * 1e3  # noqa: E731
+    c1, c2 = (ms * 1e3 for ms in k1_conv_ms)
     log(f"K1 and its parts at (1, {H}, {W}, 64) bf16, this run: K1 conv_1 "
-        f"{k1_conv1_ms * 1e3:.2f} us | P2 patch {us('patch'):.2f} us | P1 "
+        f"{c1:.2f} us | P2 patch {us('patch'):.2f} us | P1 "
         f"dot64_resident {us('dot64_resident'):.2f} us | cuDNN conv+relu "
         f"{us('cudnn'):.2f} us (conv alone, K1's weights: "
         f"{conv_ms * 1e3:.2f} us)")
+    log(f"res block, this run: P2 pair (both convs, relu, residual add in "
+        f"one launch, y1 kept on chip) {us('pair'):.2f} us vs K1 conv_1 + "
+        f"conv_2 (two launches) {c1:.2f} + {c2:.2f} = {c1 + c2:.2f} us: "
+        f"pair / K1 pair = {us('pair') / (c1 + c2):.3f}")
     return res, p1, p2
 
 
@@ -472,11 +481,14 @@ def main() -> int:
     _build.build_all()
     log(f"kernel build (nvcc, sm_90a, in parallel): "
         f"{time.perf_counter() - t0:.1f} s")
-    for source, rows in _build.resource_usage().items():
+    usage = _build.resource_usage()
+    for source, rows in usage.items():
         log(f"ptxas -v {source}.cu: " + "; ".join(
             f"{k} {r} registers, {sp} B spilled"
             + (f", {len(n)} notes ({n[0].split()[0]})" if n else "")
             for k, r, sp, n in rows))
+    if any(sp for _, _, sp, _ in usage["probe_patch_dot"]):
+        raise AssertionError("P2 spills registers")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -489,7 +501,8 @@ def main() -> int:
     if args.profile:
         profile(torch, engine, frames, device, args.profile)
     probes, p1_launches, p2_launches = phase_conv_probe(
-        torch, device, times["k1"]["conv_1"][0], times["lib_ms"])
+        torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
+        times["lib_ms"])
 
     (c1, p1, b1, by1), (c2, p2, b2, by2) = (times["k1"]["conv_1"],
                                             times["k1"]["conv_2"])

@@ -47,7 +47,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_mma.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -81,11 +80,6 @@ constexpr size_t R_A_BYTES = size_t(KCH_MAX) * RBM * ROW_BYTES;
 constexpr size_t R_B_BYTES = size_t(K_MAX) * ROW_BYTES;
 constexpr size_t R_SMEM =
     1024 + R_A_BYTES + R_B_BYTES + (KCH_MAX + 2) * sizeof(uint64_t);
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t s = jt::smem_addr(p);
-  return p + ((SW_ATOM - (s & (SW_ATOM - 1))) & (SW_ATOM - 1));
-}
 
 // The k16 step j of k-chunk kc: A rows at `a` (a 1024-aligned K-major
 // swizzled tile), B's k rows at `b` (MN-major, 64-column blocks
@@ -152,7 +146,7 @@ probe_dot_resident_kernel(const __grid_constant__ CUtensorMap amap,
                           __nv_bfloat16* __restrict__ y, int M, int K,
                           int N, int tile_m) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* as = align1024(smem_raw);
+  unsigned char* as = jt::align1024(smem_raw);
   unsigned char* bs = as + R_A_BYTES;
   uint64_t* bar = reinterpret_cast<uint64_t*>(bs + R_B_BYTES);  // k-chunks
   uint64_t* turn = bar + KCH_MAX;  // a warpgroup's turn to issue
@@ -214,7 +208,7 @@ probe_dot_kernel(const __grid_constant__ CUtensorMap amap,
                  __nv_bfloat16* __restrict__ y, int M, int K) {
   using S = Streamed<N>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* bs = align1024(smem_raw);
+  unsigned char* bs = jt::align1024(smem_raw);
   unsigned char* as = bs + S::B_BYTES;
   uint64_t* full = reinterpret_cast<uint64_t*>(as + S::STAGES * A_STAGE_BYTES);
   uint64_t* empty = full + S::STAGES;

@@ -49,7 +49,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_mma.cuh"
 #include "wgmma_tma.cuh"
 
 namespace {
@@ -110,8 +109,7 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
                     int n_img, int H, int W, int act, float alpha) {
   using G = Geom<C>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ws =
-      smem_raw + ((1024 - (jt::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* ws = jt::align1024(smem_raw);
   unsigned char* outs = ws + G::W_BYTES;
   unsigned char* halo = outs + SLOTS * G::TILE_BYTES;
   float* s_scale =

@@ -1,7 +1,9 @@
-// Hopper (sm_90a) core shared by the bf16 kernels K1 (resblock_conv.cu)
-// and P1 (probe_dot.cu): wgmma shared-memory descriptors and the
-// m64nNk16 bf16 -> f32 product, mbarrier waits, TMA (cp.async.bulk.tensor)
-// tiled loads and stores, and host-side CUtensorMap encoding.
+// Hopper (sm_90a) core shared by the bf16 kernels K1 (resblock_conv.cu),
+// P1 (probe_dot.cu) and P2 (probe_patch_dot.cu): wgmma shared-memory
+// descriptors and the m64nNk16 bf16 -> f32 product (A from shared memory,
+// or at n64 from registers), mbarrier waits, TMA (cp.async.bulk.tensor)
+// tiled loads and stores, host-side CUtensorMap encoding, and the
+// shared-address and persistent-grid helpers.
 //
 // Descriptors (PTX ISA, "matrix descriptor"; all offsets in bytes, stored
 // >> 4): bits 0-13 start address, 16-29 leading byte offset (LBO), 32-45
@@ -23,6 +25,12 @@
 // warpgroup holds rows 16w..16w+15; with g = lane / 4, t = lane % 4,
 // d[4j + 0, 1] = (row 16w + g, cols 8j + 2t + {0, 1}) and
 // d[4j + 2, 3] = (row 16w + g + 8, the same cols).
+// A register operand of m64k16 (bf16 pairs, 4 registers a thread), warp
+// w's rows 16w..16w+15: a0 = (row g, k 2t, 2t+1), a1 = (row g + 8, the
+// same k), a2 = (row g, k 2t + 8, +9), a3 = (row g + 8, the same k).  So
+// columns 16kk..16kk+15 of an accumulator are the A operand of k16 step
+// kk: a = pack(d[8kk + 0, 1]), pack(d[8kk + 2, 3]), pack(d[8kk + 4, 5]),
+// pack(d[8kk + 6, 7]), each pair's lower column in the low half.
 #pragma once
 
 #include <cuda.h>
@@ -30,9 +38,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "warp_mma.cuh"
-
 namespace jt {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The first 1024-byte boundary at or after p: where a 128-byte swizzled
+// tile may start.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
 
 // The descriptor of a 128-byte swizzled operand starting at `saddr`.
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo,
@@ -64,6 +80,14 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register A operands: a wgmma reads them after it is
+// issued, so they must stay live and unchanged until its wait.
+template <int R>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 // d (+)= A (64 x 16, K-major) @ B (16 x N); scale_d = 0 overwrites d.
@@ -161,6 +185,32 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t a,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// d (+)= A (64 x 16, bf16 pairs in registers, see above) @ B (16 x 64).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+        "n"(TRANS_B));
 }
 
 template <int N, int TRANS_B>
@@ -271,6 +321,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 // Tiled store of the box at `src` to the given coordinates; elements
 // outside the tensor are not written.  The writes to `src` must be made
 // visible to the async proxy first (fence_proxy_async, then a barrier).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {
@@ -308,7 +368,42 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// ---------------------------------------------------- host: tensor maps
+// ------------------------------------------------------------ host
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory and return
+// its persistent grid size on the current device (SMs x resident CTAs
+// per SM), once per device; 0 on error (*err says which).
+template <typename Kernel>
+int persistent_grid(Kernel kernel, int threads, size_t smem, int* cache,
+                    int max_devices, cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev >= max_devices) {
+    *err = cudaErrorInvalidDevice;
+    return 0;
+  }
+  if (cache[dev] == 0) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (*err != cudaSuccess) return 0;
+    int sms = 0, per_sm = 0;
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (*err != cudaSuccess) return 0;
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                         threads, smem);
+    if (*err != cudaSuccess) return 0;
+    if (per_sm < 1) {
+      *err = cudaErrorInvalidConfiguration;
+      return 0;
+    }
+    cache[dev] = sms * per_sm;
+  }
+  *err = cudaSuccess;
+  return cache[dev];
+}
+
+// Tensor maps.
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,

@@ -13,16 +13,20 @@ splits the res-block conv's cost (K1) into its parts at K1's shape,
   with A streamed (149 MB of A, about 49 us).  Resident mode keeps A_blk
   in shared memory, spread over the CTAs, as the TPU kernel keeps it in
   VMEM: it times the product with no operand traffic.  Streamed mode
-  pipelines A through a TMA ring while B stays resident.  TMA takes
-  operands whose base addresses are multiples of 16 bytes.
+  pipelines A through a TMA ring while B stays resident.
 - P2 ``probe_patch_dot`` replaces ``tools/pallas_conv_probe.py
   probe_patch_dot`` -> ``kernel``: the 9-tap patch of a flat padded
   buffer times the (576, 64) weights, relu, and with ``pair`` the second
   product and the residual add of a res block.  CUDA source
-  ``csrc/probe_patch_dot.cu``.  Bound by operations (9.5 us, 19.1 us
-  for the pair).
+  ``csrc/probe_patch_dot.cu``, on the same core: each CTA holds the x
+  rows of its row chunk (three dy windows, and the pair's residual
+  rows) and the weights in shared memory and computes every step's
+  products from them, the taps as shifts of the A descriptor; the
+  pair's first product stays in registers as the ``wgmma`` A operand
+  of the second.  Bound by operations (9.5 us, 19.1 us for the pair).
 
-Both sources say how their design meets that bound.  The functions keep
+Both sources say how their design meets that bound.  TMA takes operands
+whose base addresses are multiples of 16 bytes.  The functions keep
 what the Pallas calls compute, quirks included: in resident mode every
 output tile of P1 is the same, and every step of P2 reads the same input
 rows.  The JAX call leaves rows undefined where ``tile_m`` does not

@@ -152,13 +152,18 @@ def test_probe_dot_kernel_matches_plain(gen, cuda, n, resident, m, k, tile):
     assert ok, err
 
 
-@pytest.mark.parametrize("tile,m", [(64, 192), (77, 250)],
-                         ids=["small", "odd"])
+@pytest.mark.parametrize("tile,m", [(64, 192), (77, 250), (200, 600),
+                                    (256, 768), (2416, 2 * 2416)],
+                         ids=["small", "odd", "ragged", "whole", "probe"])
 def test_probe_patch_dot_kernel_matches_plain(gen, cuda, tile, m):
     """P2 single within one bf16 ulp plus the reorder bound; the pair
     against the plain pair (two ulps plus the reorder bound) on the rows
     whose first product y1 the kernel rounds as the plain version does,
-    at least 90% of them.  250 // 77 truncates to 3 steps."""
+    at least 90% of them.  250 // 77 truncates to 3 steps.  The kernel
+    works in 64-row items: at tile 200 the last item of each step holds
+    8 rows, so its store must clip at the step's end; 256 is four whole
+    items; 2416 is the probe's own tile (37 whole items and one of 48
+    rows), over two steps."""
     x = _bf16(gen, (tile + 2 * HALO + 8, 64), cuda)
     w1, w2 = (_bf16(gen, (K, 64), cuda, 0.05) for _ in range(2))
     before = probe_patch_dot.launches
@@ -198,6 +203,8 @@ def test_probe_kernels_refuse_bad_operands(gen, cuda):
         probe_patch_dot(x[:, :32], b, b, 64, m=64)
     with pytest.raises(ValueError):
         probe_patch_dot(x[:-1], b, b, 64, True, m=64)  # too few rows
+    with pytest.raises(ValueError):
+        probe_patch_dot(_offset(x, 8), b, b, 64, m=64)  # TMA: 16-byte bases
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
