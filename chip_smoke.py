@@ -4,29 +4,36 @@
     python3 chip_smoke.py [--seed 0] [--profile DIR]
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc`` and
-prints each kernel's registers and spills (``ptxas -v``), holds K1 and
-K2 against their plain PyTorch versions on the card, drives the
-quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16, 270x480
--> 1080x1920, seeded random weights) through ``Engine.process`` and checks
-that every frame went through the serving kernels and that a step makes
-no synchronising call, holds the first frames against the same engine
-run on the CPU (plain versions), and times the frame, the step and each
-kernel with CUDA events.  Then it drives the second path, the conv
-probe (``joshupscale_torch.tools.conv_probe.run``), which holds P1 and
-P2 against their plain versions at full shape (all five variants) and
-times them; checks that it went through P1 and P2; and prints K1, P2,
-P1 and cuDNN side by side at the res-block conv's shape, and P2's
-fused pair (a whole res block in one launch) beside K1's two launches.
-K1's and the probes' lines and kernel entries carry the share of the
-bf16 peak and the fraction of the bound's rate.  Fails if P2 spills
-registers.
+prints each kernel's registers and spills (``ptxas -v``), holds K1 (C =
+32, 48, 64; full frame at 48 and 64) and K2 against their plain PyTorch
+versions on the card, then drives every serving path through
+``Engine.process`` with seeded random weights at 270x480 -> 1080x1920:
+the quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16,
+68 K1 + 1 K2 launches a frame), the PS2 tiers (flow autoencoder,
+272x480 padding, brightness; generator 64x24: 48 K1 + 1 K2, generator
+48x12: 24 K1 + 1 K2) and the serving options on the PS2-fast
+architecture (u8 state, moving average global and windowed,
+output_flow: 0 K1, remove_flow and pixel mode: no K2).  For each path
+it counts the launches from zero, checks that a step makes no
+synchronising call and that the output is not clipped flat, and holds
+frames against the same engine run on the CPU (plain versions).  It
+times the frame, the step and each kernel with CUDA events, and splits
+the PS2 steps' device time by stage and kernel (``torch.profiler``).
+Then it drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
+which holds P1 and P2 against their plain versions at full shape (all
+five variants) and times them; checks that it went through P1 and P2;
+and prints K1, P2, P1 and cuDNN side by side at the res-block conv's
+shape, and P2's fused pair (a whole res block in one launch) beside
+K1's two launches.  K1's and the probes' lines and kernel entries carry
+the share of the bf16 peak and the fraction of the bound's rate.  Fails
+if P2 spills registers.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, on any failure -- including when there is no CUDA device.
-``--profile DIR`` also writes a torch.profiler summary of a few steps
-there.
+``--profile DIR`` also writes a torch.profiler summary of a few quality
+tier steps there.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ K1_PER_FRAME = 2 * (10 + 24)
 FRAMES = 8  # driven through Engine.process, launches counted
 REF_FRAMES = 3  # of those, held against the CPU run
 TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
+VARIANT_FRAMES = 3  # each serving option: driven, counted, held vs CPU
 
 
 def log(msg: str) -> None:
@@ -74,7 +82,9 @@ def k1_bound_ms(n, h, w, c, residual) -> tuple:
 
 
 def phase_k1(torch, rng, device):
-    """K1 vs its plain version: main shape in bf16, C=32/48 and f32 small."""
+    """K1 vs its plain version: the full frame in bf16 at C = 64 (the
+    quality and PS2-style generators) and 48 (PS2-fast), C = 32/48 and
+    f32 small.  Returns the largest error at full frame by C."""
     from joshupscale_torch.kernels.resblock import (
         resblock_conv3x3, resblock_conv3x3_plain)
 
@@ -94,10 +104,11 @@ def phase_k1(torch, rng, device):
     # round once: they may differ by the f32 summation order and one
     # rounding of the output, i.e. about one bf16 ulp (2^-8 relative).
     tol = {torch.bfloat16: 1 / 64, torch.float32: 1e-4}
-    cases = [((1, H, W), 64, torch.bfloat16), ((2, 19, 37), 32, torch.bfloat16),
+    cases = [((1, H, W), 64, torch.bfloat16), ((1, H, W), 48, torch.bfloat16),
+             ((2, 19, 37), 32, torch.bfloat16),
              ((2, 19, 37), 48, torch.bfloat16), ((1, 45, 80), 64, torch.float32),
              ((2, 19, 37), 32, torch.float32)]
-    worst_main = 0.0
+    worst_main = {64: 0.0, 48: 0.0}
     for shape, c, dtype in cases:
         x, wt, s, t, r = operands(shape, c, dtype)
         for res, act in ((None, "relu"), (r, "relu"), (r, "lrelu")):
@@ -115,7 +126,7 @@ def phase_k1(torch, rng, device):
                     f"K1 {shape} C={c} {dtype} res={res is not None} {act}: "
                     f"max abs err {worst}")
             if shape == (1, H, W):
-                worst_main = max(worst_main, worst)
+                worst_main[c] = max(worst_main[c], worst)
             log(f"K1 {dtype} {shape} C={c} residual={res is not None} "
                 f"{act}: max_abs_err={worst:.3g} (bound {tol[dtype]:.3g}"
                 f"*(1+|ref|)) ok")
@@ -150,23 +161,65 @@ def phase_k2(torch, rng, device):
     return float(worst)
 
 
-def quality_config() -> dict:
-    return {
-        "flow": {"name": "flow-resnet", "num_inputs": 4, "num_filters": 64,
-                 "num_res_blocks": 10},
-        "generator": {"name": "generator-resnet", "num_filters": 64,
-                      "num_res_blocks": 24},
+def serving_config(flow: dict, gen_filters: int, gen_blocks: int,
+                   **inference) -> dict:
+    """A serving config at full frame in bf16 (the tiers' own, as in
+    ``configs/inference_*.yaml``)."""
+    config = {
+        "flow": flow,
+        "generator": {"name": "generator-resnet", "num_filters": gen_filters,
+                      "num_res_blocks": gen_blocks},
         "inference": {"name": "inference", "flow": {"model": "flow"},
                       "generator": {"model": "generator"},
                       "skip_processing": False, "frame_height": H,
-                      "frame_width": W, "compute_dtype": "bfloat16"},
+                      "frame_width": W, "compute_dtype": "bfloat16",
+                      **inference},
     }
+    if inference.get("remove_flow"):
+        del config["flow"], config["inference"]["flow"]
+    return config
+
+
+def quality_config() -> dict:
+    return serving_config({"name": "flow-resnet", "num_inputs": 4,
+                           "num_filters": 64, "num_res_blocks": 10}, 64, 24)
+
+
+PS2_LADDERS = {"ps2_style": ([32, 64, 128, 256, 128, 64, 32], 64, 24),
+               "ps2_fast": ([16, 32, 64, 128, 64, 32, 16], 48, 12)}
+
+
+def ps2_config(tier: str, **options) -> dict:
+    filters, gen_filters, gen_blocks = PS2_LADDERS[tier]
+    return serving_config(
+        {"name": "flow-autoencoder", "num_inputs": 4, "filters": filters},
+        gen_filters, gen_blocks, flow_pad_factor=8,
+        normalize_brightness=True, **options)
+
+
+# The serving options, on the PS2-fast architecture: (options, K1 and K2
+# launches a frame).  output_flow runs no generator; remove_flow and
+# pixel mode make the u8 frame in the step (no deferred display).
+_FAST_K1 = 2 * PS2_LADDERS["ps2_fast"][2]
+VARIANTS = {
+    "u8_state": ({"u8_state": True}, _FAST_K1, 1),
+    "moving_avg_window0": (
+        {"frame_moving_avg": {"strength": 0.7, "threshold": 0.1}},
+        _FAST_K1, 1),
+    "moving_avg_window16": (
+        {"frame_moving_avg": {"strength": 0.7, "threshold": 0.1,
+                              "window": 16}}, _FAST_K1, 1),
+    "output_flow": ({"output_flow": True}, 0, 1),
+    "remove_flow": ({"remove_flow": True}, _FAST_K1, 0),
+    "pixel_mode": ({"s2d_mode": False}, _FAST_K1, 0),
+}
 
 
 def seeded_params(torch, built, seed: int):
     """Random weights with BN stats perturbed, scaled so activations stay
     O(1) through 24 res blocks and the output is not clipped flat: each
-    block's residual branch (bn_2 gamma) and the flow head are damped."""
+    res block's residual branch (bn_2 gamma) and the two heads are
+    damped.  The autoencoder's double convs are left as they are."""
     rng = np.random.default_rng(seed)
 
     def walk(tree, path=""):
@@ -180,11 +233,16 @@ def seeded_params(torch, built, seed: int):
             elif k == "moving_variance":
                 v.copy_(torch.from_numpy(
                     1 + rng.random(v.shape).astype(np.float32)))
-            elif k == "gamma" and ".block_" in f".{p}" and "bn_2" in p:
+            elif (k == "gamma" and ".block_" in f".{p}" and "bn_2" in p
+                  and (p.startswith("generator") or resnet_flow)):
                 v.mul_(0.2)
     params = built.params
+    # The resnet flow net has res blocks and a 1x1 head (OHWI kernel).
+    resnet_flow = ("flow" in params
+                   and params["flow"]["conv_2"]["kernel"].shape[1] == 1)
     walk(params)
-    params["flow"]["conv_2"]["kernel"].mul_(0.5)
+    if "flow" in params:
+        params["flow"]["conv_2"]["kernel"].mul_(0.5)
     params["generator"]["conv_trans_2"]["kernel"].mul_(0.5)
     return params
 
@@ -211,15 +269,20 @@ def all_kernels():
     return resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot
 
 
-def phase_main(torch, seed, device):
-    """The main path: Engine.process on the quality tier at full width."""
+def drive_path(torch, name, config, seed, device, k1_per_frame,
+               k2_per_frame, n_frames=FRAMES, ref_frames=REF_FRAMES):
+    """One serving path through ``Engine.process`` at full frame: the
+    launches counted from zero over ``n_frames`` frames, the output
+    checked, a step checked for synchronising calls, and the first
+    ``ref_frames`` frames held against the same engine on the CPU."""
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import Engine
 
-    built = create_models(quality_config(), seed=seed)["inference"]
+    t0 = time.perf_counter()
+    built = create_models(config, seed=seed)["inference"]
     params = seeded_params(torch, built, seed)
     engine = Engine(built.obj, params, device=device)
-    frames = frames_for(FRAMES, seed)
+    frames = frames_for(n_frames, seed)
 
     kernels = all_kernels()
     for k in kernels:
@@ -228,21 +291,22 @@ def phase_main(torch, seed, device):
     torch.cuda.synchronize()
     k1, k2, p1, p2 = (k.launches for k in kernels)
     t = len(frames)
-    log(f"main path: {t} frames through Engine.process, K1 launches={k1} "
+    log(f"{name}: {t} frames through Engine.process, K1 launches={k1} "
         f"({k1 / t:g}/frame), K2 launches={k2} ({k2 / t:g}/frame), P1/P2 "
         f"launches={p1}/{p2}")
-    if k1 != K1_PER_FRAME * t or k2 != t or p1 or p2:
-        raise AssertionError(f"expected {K1_PER_FRAME}/frame K1, 1/frame "
-                             f"K2 and no P1/P2 launches, got {k1}, {k2}, "
-                             f"{p1}, {p2}")
+    if k1 != k1_per_frame * t or k2 != k2_per_frame * t or p1 or p2:
+        raise AssertionError(f"{name}: expected {k1_per_frame}/frame K1, "
+                             f"{k2_per_frame}/frame K2 and no P1/P2 "
+                             f"launches, got {k1}, {k2}, {p1}, {p2}")
     for o in outs:
         if o.shape != (4 * H, 4 * W, 3) or o.dtype != np.uint8:
-            raise AssertionError(f"bad output {o.shape} {o.dtype}")
+            raise AssertionError(f"{name}: bad output {o.shape} {o.dtype}")
     inside = float(np.mean([((o > 0) & (o < 255)).mean() for o in outs]))
-    log(f"main path: output {outs[0].shape} uint8; share of values strictly "
+    log(f"{name}: output {outs[0].shape} uint8; share of values strictly "
         f"between 0 and 255: {inside:.4f}")
     if inside < 0.5:
-        raise AssertionError("output mostly clipped: the check is trivial")
+        raise AssertionError(f"{name}: output mostly clipped: the check is "
+                             f"trivial")
 
     # A step only enqueues work: any host<->device copy or other
     # synchronising call inside it raises here.
@@ -254,62 +318,68 @@ def phase_main(torch, seed, device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log("main path: a step and its display make no synchronising call "
-        "(torch.cuda.set_sync_debug_mode('error'))")
+    log(f"{name}: a step and its display make no synchronising call "
+        f"(torch.cuda.set_sync_debug_mode('error'))")
 
     # The same engine on the CPU (plain versions), same params and frames.
     cpu = Engine(built.obj, params, device="cpu")
-    for i in range(REF_FRAMES):
+    for i in range(ref_frames):
         ref = cpu.process(frames[i]).astype(np.int32)
         diff = np.abs(outs[i].astype(np.int32) - ref)
         mean_d, share = float(diff.mean()), float((diff > 2).mean())
-        log(f"main path vs CPU plain run, frame {i}: u8 max diff "
+        log(f"{name} vs CPU plain run, frame {i}: u8 max diff "
             f"{int(diff.max())}, mean {mean_d:.4f}, share of values off by "
             f"more than 2: {share:.5f}")
         # bf16 on both sides, rounded at other places (cuDNN/cuBLAS vs
         # oneDNN/MKL for the plain convs and products, the kernel's sum
         # order): a few u8 steps where a flip propagates, rarely more.
         if mean_d > 0.5 or share > 0.01:
-            raise AssertionError("card and CPU runs disagree beyond bound")
+            raise AssertionError(f"{name}: card and CPU runs disagree "
+                                 f"beyond bound")
+    log(f"{name}: phase took {time.perf_counter() - t0:.1f} s")
     return engine, frames, k1, k2
 
 
-def phase_times(torch, engine, frames, device):
-    """Frame, step and kernel times on the card (CUDA events, medians)."""
-    import torch.nn.functional as F
-
-    from joshupscale_torch.kernels.display import (
-        d2s_display_u8, d2s_display_u8_plain)
-    from joshupscale_torch.kernels.resblock import (
-        resblock_conv3x3, resblock_conv3x3_plain)
+def time_frames(torch, name, engine, frames, device, n=TIMED_FRAMES):
+    """Frame latency as a host sees it (blocking ``process``, copies
+    included; the first 3 dropped) and the step alone (CUDA events, host
+    launch gaps included)."""
     from joshupscale_torch.tools.timing import cuda_time_ms
 
-    torch.backends.cudnn.allow_tf32 = False
-    # Frame latency as a host sees it: blocking process(), copies included.
     lat = []
-    for i in range(TIMED_FRAMES):
+    for i in range(n):
         t0 = time.perf_counter()
         engine.process(frames[i % len(frames)])
         lat.append((time.perf_counter() - t0) * 1e3)
     lat = np.asarray(lat[3:])
     p80 = float(np.percentile(lat, 80))
-    log(f"Engine.process: median {np.median(lat):.3f} ms/frame, p80 "
+    log(f"{name} Engine.process: median {np.median(lat):.3f} ms/frame, p80 "
         f"{p80:.3f} ms (n={lat.size}, blocking, host<->device copies "
         f"included)")
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     step_ms = cuda_time_ms(lambda: engine.step(dev_frame), reps=5,
                            device_only=False)
-    log(f"step alone (no display, no copies, host launch gaps included): "
-        f"median {step_ms:.3f} ms/frame")
+    log(f"{name} step alone (no display, no copies, host launch gaps "
+        f"included): median {step_ms:.3f} ms/frame")
+    return float(np.median(lat)), step_ms
+
+
+def time_k1(torch, device, c):
+    """K1's conv_1 (no residual) and conv_2 (residual) at (1, H, W, c)
+    bf16 against the plain version, its bound and ``F.conv2d``."""
+    import torch.nn.functional as F
+
+    from joshupscale_torch.kernels.resblock import (
+        resblock_conv3x3, resblock_conv3x3_plain)
+    from joshupscale_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(7)
-    c = 64
     x = torch.from_numpy(rng.standard_normal((1, H, W, c)).astype(
         np.float32) * 0.5).to(device, torch.bfloat16)
     res = torch.from_numpy(rng.standard_normal((1, H, W, c)).astype(
         np.float32)).to(device, torch.bfloat16)
     wt = torch.from_numpy(rng.standard_normal((c, 3, 3, c)).astype(
-        np.float32) / 24).to(device, torch.bfloat16)
+        np.float32) / np.sqrt(9 * c)).to(device, torch.bfloat16)
     s = torch.ones(c, device=device)
     o = torch.zeros(c, device=device)
     k1 = {}
@@ -328,8 +398,23 @@ def phase_times(torch, engine, frames, device):
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory
     lib_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
                           reps=20)
-    log(f"library yardstick F.conv2d bf16 channels-last: {lib_ms:.4f} ms")
+    log(f"library yardstick F.conv2d (1,{H},{W},{c}) bf16 channels-last: "
+        f"{lib_ms:.4f} ms")
+    return k1, lib_ms
 
+
+def phase_times(torch, engine, frames, device):
+    """The quality tier's frame and step; K1 at C = 64, K2 (CUDA events,
+    medians)."""
+    from joshupscale_torch.kernels.display import (
+        d2s_display_u8, d2s_display_u8_plain)
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
+    torch.backends.cudnn.allow_tf32 = False
+    frame_ms, step_ms = time_frames(torch, "quality", engine, frames, device)
+    k1, lib_ms = time_k1(torch, device, 64)
+
+    rng = np.random.default_rng(8)
     y = torch.from_numpy(np.clip(rng.standard_normal((1, H, W, 48)).astype(
         np.float32) * 0.3, -0.5, 0.5)).to(device, torch.bfloat16)
     k2_ms = cuda_time_ms(lambda: d2s_display_u8(y), reps=50)
@@ -339,14 +424,131 @@ def phase_times(torch, engine, frames, device):
         f"bound {k2_bound:.4f} ms (bytes)")
 
     k1_ms = (k1["conv_1"][0] + k1["conv_2"][0]) / 2
-    log(f"where the step goes: K1 {K1_PER_FRAME} x {k1_ms:.4f} = "
+    log(f"where the quality step goes: K1 {K1_PER_FRAME} x {k1_ms:.4f} = "
         f"{K1_PER_FRAME * k1_ms:.3f} ms of {step_ms:.3f} ms; the rest "
         f"(first convs, heads, warp, tail, state copies, launch gaps) "
         f"{step_ms - K1_PER_FRAME * k1_ms:.3f} ms")
     return {
         "k1": k1, "lib_ms": lib_ms, "k2": (k2_ms, k2_plain, k2_bound),
-        "frame_ms": float(np.median(lat)), "step_ms": step_ms,
+        "frame_ms": frame_ms, "step_ms": step_ms,
     }
+
+
+def kernel_group(name: str) -> str:
+    """The part of a step a CUDA kernel belongs to, by its name."""
+    low = name.lower()
+    if "conv3x3" in name:
+        return "K1 resblock_conv3x3"
+    if "d2s_display" in name:
+        return "K2 d2s_display_u8"
+    if "max_pool" in low:
+        return "max pool"
+    if "index_elementwise" in name:
+        return "warp row gather (index)"
+    if "conv" in low or "xmma" in low or "cudnn" in low:
+        return "library convs"
+    if "gemm" in low:
+        return "gemm (tail products)"
+    if "CatArray" in name or "cat_" in low:
+        return "cat (tables, inputs, stacks)"
+    return "other elementwise"
+
+
+def device_events(prof, path):
+    """The device kernels, copies and fills of a finished profile, whose
+    trace is written to ``path``."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        raise RuntimeError("the profiler recorded no device activity")
+    return events
+
+
+def phase_split(torch, name, engine, frames, device):
+    """Where a step's time goes: the flow stage (preprocess, brightness,
+    pad, flow net) and the generator stage (warp, generator, tail) each
+    timed alone (CUDA events, device only and with the host's launch
+    gaps) and profiled over 3 calls, kernels grouped by
+    ``kernel_group``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
+    model, params, state = engine.model, engine.params, engine.state
+    x = torch.from_numpy(frames[0][None]).to(device)
+    with torch.inference_mode():
+        inter, _ = model.apply_flow_stage(
+            params, x, {"last_frames": state["last_frames"]})
+        stages = {
+            "flow stage": lambda: model.apply_flow_stage(
+                params, x, {"last_frames": state["last_frames"]}),
+            "generator stage": lambda: model.apply_gen_stage(
+                params, inter, {"pre_gen": state["pre_gen"]}),
+        }
+        split = {}
+        for stage, fn in stages.items():
+            ms = cuda_time_ms(fn, reps=5)
+            host_ms = cuda_time_ms(fn, reps=5, device_only=False)
+            torch.cuda.synchronize()
+            with tprofile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            groups = {}
+            with tempfile.TemporaryDirectory() as d:
+                events = device_events(prof, os.path.join(d, "trace.json"))
+            for e in events:
+                key = kernel_group(e["name"])
+                groups[key] = groups.get(key, 0.0) + e["dur"] / 3e3
+            split[stage] = {"ms": ms, "host_ms": host_ms, "groups": groups,
+                            "ops": len(events) / 3}
+            log(f"{name} {stage}: {ms:.3f} ms/frame device only, "
+                f"{host_ms:.3f} ms with host launch gaps (CUDA events), "
+                f"{len(events) / 3:.0f} device ops; profiled device time "
+                f"by part: " + "; ".join(
+                    f"{k} {v:.3f}" for k, v in sorted(
+                        groups.items(), key=lambda kv: -kv[1])))
+    return split
+
+
+def phase_ps2(torch, seed, device, profile_dir=None):
+    """The two PS2 tiers at full width: driven, checked, timed, split
+    (and profiled into ``profile_dir``); K1 at C = 48 timed on the
+    PS2-fast path."""
+    out = {}
+    for tier in ("ps2_style", "ps2_fast"):
+        k1_per_frame = 2 * PS2_LADDERS[tier][2]
+        engine, frames, k1, k2 = drive_path(
+            torch, tier, ps2_config(tier), seed, device, k1_per_frame, 1)
+        frame_ms, step_ms = time_frames(torch, tier, engine, frames, device,
+                                        n=23)
+        split = phase_split(torch, tier, engine, frames, device)
+        if profile_dir:
+            profile(torch, tier, engine, frames, device, profile_dir)
+        out[tier] = {"k1": k1, "k2": k2, "frame_ms": frame_ms,
+                     "step_ms": step_ms, "split": split}
+        del engine
+    out["k1_c48"], out["lib_ms_c48"] = time_k1(torch, device, 48)
+    return out
+
+
+def phase_variants(torch, seed, device):
+    """Every serving option on the PS2-fast architecture at full frame:
+    launches, output, sync and card-vs-CPU checks as for the tiers."""
+    launches = {}
+    for name, (options, k1_per_frame, k2_per_frame) in VARIANTS.items():
+        _, _, k1, k2 = drive_path(
+            torch, f"variant {name}", ps2_config("ps2_fast", **options),
+            seed, device, k1_per_frame, k2_per_frame,
+            n_frames=VARIANT_FRAMES, ref_frames=VARIANT_FRAMES)
+        launches[name] = {"K1": k1, "K2": k2}
+    return launches
 
 
 def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
@@ -399,7 +601,10 @@ def probe_entry(name, source, replaces, variants, res, launches):
     }
 
 
-def profile(torch, engine, frames, device, out_dir):
+def profile(torch, name, engine, frames, device, out_dir):
+    """A serving path's steps and displays under ``torch.profiler``:
+    device ops and busy time a frame, the idle share of the span, the
+    device time by part; the table and trace go to ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     os.makedirs(out_dir, exist_ok=True)
@@ -414,16 +619,10 @@ def profile(torch, engine, frames, device, out_dir):
         torch.cuda.synchronize()
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
-    with open(os.path.join(out_dir, "profile_step.txt"), "w") as f:
+    with open(os.path.join(out_dir, f"profile_step_{name}.txt"), "w") as f:
         f.write(table)
-    trace = os.path.join(out_dir, "trace_step.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in
-                  ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not events:
-        raise RuntimeError("the profiler recorded no device activity")
+    events = device_events(prof, os.path.join(out_dir,
+                                              f"trace_step_{name}.json"))
     events.sort(key=lambda e: e["ts"])
     busy, cur_start, cur_end = 0.0, None, None
     for e in events:  # union of device intervals
@@ -438,17 +637,9 @@ def profile(torch, engine, frames, device, out_dir):
     span = max(e["ts"] + e["dur"] for e in events) - events[0]["ts"]
     groups = {}
     for e in events:
-        n = e["name"]
-        key = ("K1 resblock_conv3x3" if "conv3x3" in n else
-               "K2 d2s_display_u8" if "d2s_display" in n else
-               "warp row gather (index)" if "index_elementwise" in n else
-               "library convs (first convs, heads, skip)"
-               if ("conv" in n.lower() or "xmma" in n) else
-               "cat (warp table, inputs)" if "CatArray" in n else
-               "gemm (tail)" if "gemm" in n.lower() else
-               "other elementwise (warp combine, tail, casts)")
+        key = kernel_group(e["name"])
         groups[key] = groups.get(key, 0.0) + e["dur"]
-    log(f"profile of 3 steps + displays: {len(events) / 3:.0f} device "
+    log(f"{name} profile of 3 steps + displays: {len(events) / 3:.0f} device "
         f"ops/frame, device busy {busy / 3e3:.3f} ms/frame of a "
         f"{span / 3e3:.3f} ms/frame span (idle share "
         f"{1 - busy / span:.3f}, profiler on)")
@@ -495,11 +686,15 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     k1_err = phase_k1(torch, rng, device)
     k2_err = phase_k2(torch, rng, device)
-    engine, frames, k1_launches, k2_launches = phase_main(
-        torch, args.seed, device)
+    engine, frames, k1_launches, k2_launches = drive_path(
+        torch, "quality", quality_config(), args.seed, device, K1_PER_FRAME,
+        1)
     times = phase_times(torch, engine, frames, device)
     if args.profile:
-        profile(torch, engine, frames, device, args.profile)
+        profile(torch, "quality", engine, frames, device, args.profile)
+    del engine
+    ps2 = phase_ps2(torch, args.seed, device, args.profile)
+    variants = phase_variants(torch, args.seed, device)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
@@ -508,24 +703,40 @@ def main() -> int:
                                             times["k1"]["conv_2"])
     k2_ms, k2_plain, k2_bound = times["k2"]
     k1_ms = (c1 + c2) / 2
+    (d1, q1, e1, _), (d2, q2, e2, ey2) = (ps2["k1_c48"]["conv_1"],
+                                          ps2["k1_c48"]["conv_2"])
+    by_path = {"quality": (k1_launches, k2_launches),
+               **{t: (ps2[t]["k1"], ps2[t]["k2"])
+                  for t in ("ps2_style", "ps2_fast")},
+               **{f"variant {v}": (n["K1"], n["K2"])
+                  for v, n in variants.items()}}
     kernels = [
         {"name": "resblock_conv3x3", "route": "cuda",
          "source": "joshupscale_torch/csrc/resblock_conv.cu",
          "replaces": "joshupscale_tpu/nn/resblock_pallas.py:84",
-         "launches": k1_launches, "path": "serving", "max_abs_err": k1_err,
+         "launches": k1_launches, "path": "serving",
+         "max_abs_err": k1_err[64],
          "ms": k1_ms, "plain_ms": (p1 + p2) / 2,
          "bound_ms": (b1 + b2) / 2,
          "bound_by": by2 if b2 >= b1 else by1,
          "library_ms": times["lib_ms"],
          "share_of_bf16_peak":
              k1_flops(1, H, W, 64) / (k1_ms * 1e-3) / PEAK_BF16_FLOPS,
-         "fraction_of_bound": (b1 + b2) / 2 / k1_ms},
+         "fraction_of_bound": (b1 + b2) / 2 / k1_ms,
+         "launches_by_path": {k: v[0] for k, v in by_path.items()},
+         "c48": {"ms": (d1 + d2) / 2, "conv_1_ms": d1, "conv_2_ms": d2,
+                 "plain_ms": (q1 + q2) / 2, "bound_ms": (e1 + e2) / 2,
+                 "bound_by": ey2, "library_ms": ps2["lib_ms_c48"],
+                 "max_abs_err": k1_err[48],
+                 "share_of_bf16_peak": k1_flops(1, H, W, 48)
+                 / ((d1 + d2) / 2 * 1e-3) / PEAK_BF16_FLOPS}},
         {"name": "d2s_display_u8", "route": "cuda",
          "source": "joshupscale_torch/csrc/display_u8.cu",
          "replaces": "joshupscale_tpu/ops/display.py:35",
          "launches": k2_launches, "path": "serving", "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
-         "bound_by": "bytes", "library_ms": None},
+         "bound_by": "bytes", "library_ms": None,
+         "launches_by_path": {k: v[1] for k, v in by_path.items()}},
         probe_entry("probe_dot", "joshupscale_torch/csrc/probe_dot.cu",
                     "tools/pallas_conv_probe.py:61",
                     ["dot64_resident", "dot128_resident", "dot64_stream"],
@@ -535,8 +746,11 @@ def main() -> int:
                     "tools/pallas_conv_probe.py:120", ["patch", "pair"],
                     probes, p2_launches),
     ]
-    log(f"frame {times['frame_ms']:.3f} ms (Engine.process median), step "
-        f"{times['step_ms']:.3f} ms on {card}")
+    log(f"quality: frame {times['frame_ms']:.3f} ms (Engine.process "
+        f"median), step {times['step_ms']:.3f} ms on {card}")
+    for tier in ("ps2_style", "ps2_fast"):
+        log(f"{tier}: frame {ps2[tier]['frame_ms']:.3f} ms, step "
+            f"{ps2[tier]['step_ms']:.3f} ms on {card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
-"""FNet optical-flow estimator, resnet variant.
+"""FNet optical-flow estimators, resnet and autoencoder variants.
 
-Port of ``flow_resnet_init`` / ``flow_resnet_apply`` from
+Port of ``flow_resnet_*`` and ``flow_autoencoder_*`` from
 ``joshupscale_tpu/models/fnet.py``.  Inputs are ``num_inputs`` NHWC
 frames (current first, then the previous ones, newest to oldest); the
 output is the 32-channel head, depth_to_space(4)'d unless
-``s2d_output``.  ``flow_resnet_apply`` takes the serving params that
-``prepare_flow_resnet`` makes once from the raw ones.
+``s2d_output``.  Each ``*_apply`` takes the serving params that its
+``prepare_*`` makes once from the raw ones.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from joshupscale_torch.models.common import (
     fold_conv_bn,
@@ -25,9 +26,11 @@ from joshupscale_torch.nn.layers import (
     batch_norm_init,
     conv2d,
     conv2d_init,
+    fold_bn,
     get_activation,
     require_float_kernel,
 )
+from joshupscale_torch.ops.resize import upscale_bilinear
 from joshupscale_torch.ops.space_depth import depth_to_space
 
 
@@ -71,6 +74,108 @@ def flow_resnet_apply(params, frames: List[torch.Tensor], activation="relu",
     out = res_blocks_apply(
         params, [f"block_{i + 1}" for i in range(num_res_blocks)], out,
         activation)
+    out = conv2d(params["conv_2"], out)
+    if s2d_output:
+        return out
+    return depth_to_space(out, 4)
+
+
+# ---------------------------------------------------------------------------
+# Autoencoder variant
+
+DEFAULT_AE_FILTERS = [32, 64, 128, 256, 128, 64, 32]
+
+
+def _double_conv_init(rng: np.random.Generator, in_ch: int, out_ch: int):
+    return {
+        "conv_1": conv2d_init(rng, 3, in_ch, out_ch, use_bias=False),
+        "bn_1": batch_norm_init(out_ch),
+        "conv_2": conv2d_init(rng, 3, out_ch, out_ch, use_bias=False),
+        "bn_2": batch_norm_init(out_ch),
+    }
+
+
+def flow_autoencoder_init(rng: np.random.Generator, num_inputs: int = 4,
+                          filters: Optional[List[int]] = None):
+    """Ladder params: ``len(filters) // 2 * 2`` double-conv blocks (half
+    down, half up), a mid ``conv_1`` + ``bn_1`` for an odd filter list,
+    and the 3x3 head ``conv_2`` to 32 channels with a bias."""
+    filters = list(filters) if filters else list(DEFAULT_AE_FILTERS)
+    n_blocks = (len(filters) // 2) * 2
+    params = {}
+    in_ch = num_inputs * 3
+    for i in range(n_blocks):
+        params[f"block_{i + 1}"] = _double_conv_init(rng, in_ch, filters[i])
+        in_ch = filters[i]
+    if len(filters) % 2:
+        params["conv_1"] = conv2d_init(rng, 3, in_ch, filters[-1],
+                                       use_bias=False)
+        params["bn_1"] = batch_norm_init(filters[-1])
+        in_ch = filters[-1]
+    params["conv_2"] = conv2d_init(rng, 3, in_ch, 32, use_bias=True)
+    return params
+
+
+def _conv_bn_params(conv_params, bn_params, dtype: torch.dtype):
+    """A conv and its batch norm, NOT folded: the reference's
+    autoencoder runs the conv, then ``x * scale + offset`` in the
+    compute dtype, and in bf16 a fold would round at another place."""
+    require_float_kernel(conv_params)
+    scale, offset = fold_bn(bn_params)
+    return ({"kernel": conv_params["kernel"].to(dtype)},
+            {"scale": scale.to(dtype), "offset": offset.to(dtype)})
+
+
+def prepare_flow_autoencoder(params, dtype: torch.dtype):
+    """Raw params -> serving params in ``dtype``: every conv kernel cast
+    and every batch norm as a ``(scale, offset)`` pair in ``dtype``."""
+    out = {}
+    for name, sub in params.items():
+        if name.startswith("block_"):
+            c1, b1 = _conv_bn_params(sub["conv_1"], sub["bn_1"], dtype)
+            c2, b2 = _conv_bn_params(sub["conv_2"], sub["bn_2"], dtype)
+            out[name] = {"conv_1": c1, "bn_1": b1, "conv_2": c2, "bn_2": b2}
+    if "conv_1" in params:
+        out["conv_1"], out["bn_1"] = _conv_bn_params(
+            params["conv_1"], params["bn_1"], dtype)
+    require_float_kernel(params["conv_2"])
+    out["conv_2"] = {k: v.to(dtype) for k, v in params["conv_2"].items()}
+    return out
+
+
+def _conv_bn_act(conv_params, bn, x: torch.Tensor, act) -> torch.Tensor:
+    """conv, then ``offset + y * scale`` in one op, then act."""
+    return act(torch.addcmul(bn["offset"], conv2d(conv_params, x),
+                             bn["scale"]))
+
+
+def _max_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-2 VALID max pool of NHWC ``x``."""
+    out = F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size=2, stride=2)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def flow_autoencoder_apply(params, frames: List[torch.Tensor],
+                           activation="relu",
+                           s2d_output: bool = False) -> torch.Tensor:
+    """Autoencoder FNet: down (conv-bn-act x2, 2x2 max pool) x K, up
+    (conv-bn-act x2, x2 bilinear in float32) x K, the optional mid conv,
+    the 3x3 head, d2s(4) unless ``s2d_output``.  The ladder follows the
+    param tree (half the ``block_i`` are down blocks); ``params`` as
+    ``prepare_flow_autoencoder`` gives them."""
+    act = get_activation(activation)
+    block_count = sum(1 for k in params if k.startswith("block_")) // 2
+    out = torch.cat(frames, dim=-1)
+    for i in range(2 * block_count):
+        p = params[f"block_{i + 1}"]
+        out = _conv_bn_act(p["conv_1"], p["bn_1"], out, act)
+        out = _conv_bn_act(p["conv_2"], p["bn_2"], out, act)
+        if i < block_count:
+            out = _max_pool_2x(out)
+        else:
+            out = upscale_bilinear(out.float(), 2).to(out.dtype)
+    if "conv_1" in params:  # odd filter list: mid conv after the ladder
+        out = _conv_bn_act(params["conv_1"], params["bn_1"], out, act)
     out = conv2d(params["conv_2"], out)
     if s2d_output:
         return out

@@ -1,15 +1,17 @@
-"""Generator, resnet architecture, s2d serving form.
+"""Generator, resnet architecture.
 
-Port of ``generator_resnet_init``, ``generator_resnet_apply`` (with a
-``pre_warp``) and ``_tail_s2d`` from ``joshupscale_tpu/models/generator.py``:
-concat(frame, s2d(pre_warp)) -> conv -> res blocks -> s2d tail
-(deconv1 as a 1x1 product to (dy1, dx1, 32) channels, tiled bn_2 + act,
-deconv2 as a block-diagonal 1x1 product in depth_to_space(4) channel
-order, tanh) + the TF1-bilinear x4 skip as phase channels -> clip.
-``generator_resnet_apply`` takes the serving params that
-``prepare_generator_resnet`` makes once from the raw ones: folds, the
-tiled bn_2, the block-diagonal deconv2 product and the bilinear phase
-kernel are constants of the step, built ahead of it.
+Port of ``generator_resnet_init``, ``generator_resnet_apply`` and
+``_tail_s2d`` from ``joshupscale_tpu/models/generator.py``:
+concat(frame, s2d(pre_warp)) -> conv -> res blocks -> tail.  The s2d
+tail (the serving form) runs deconv1 as a 1x1 product to (dy1, dx1, 32)
+channels, tiled bn_2 + act, deconv2 as a block-diagonal 1x1 product in
+depth_to_space(4) channel order, tanh, + the TF1-bilinear x4 skip as
+phase channels -> clip; the pixel tail runs the two deconvs, bn_2 and
+the skip on the HR grid.  Without a ``pre_warp`` (``remove_flow``) the
+first conv sees the frame alone.  ``generator_resnet_apply`` takes the
+serving params that ``prepare_generator_resnet`` makes once from the raw
+ones: folds, the tiled bn_2, the block-diagonal deconv2 product and the
+bilinear phase kernel are constants of the step, built ahead of it.
 """
 
 from __future__ import annotations
@@ -29,12 +31,14 @@ from joshupscale_torch.nn.layers import (
     batch_norm_init,
     conv2d,
     conv2d_init,
+    conv2d_transpose_2x,
     fold_bn,
     get_activation,
     glorot_uniform,
     require_float_kernel,
 )
 from joshupscale_torch.ops.resize import phase_kernel, phase_upscale
+from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 
 
 def deconv_matrix(kernel: np.ndarray) -> np.ndarray:
@@ -85,25 +89,33 @@ def generator_resnet_apply(params, frame: torch.Tensor,
     """(frame, warped previous output) -> refined output.
 
     With ``s2d_output`` (the serving form) ``pre_warp`` is taken in s2d
-    form (N, H, W, 48) and the output is s2d too (N, H, W, 48).
-    ``params`` as ``prepare_generator_resnet`` gives them.
+    form (N, H, W, 48) and the output is s2d too (N, H, W, 48); without
+    it ``pre_warp`` is the HR frame (N, 4H, 4W, 3) and so is the output.
+    ``pre_warp=None`` is the non-temporal variant (``remove_flow``): the
+    generator sees the frame alone.  ``params`` as
+    ``prepare_generator_resnet`` gives them for the same ``s2d_output``
+    and ``frame_only = pre_warp is None``.
     """
-    if pre_warp is None:
-        raise NotImplementedError(
-            "the non-temporal generator (pre_warp=None, remove_flow) is "
-            "not ported yet; it waits for the deployment-variants slice")
-    if not s2d_output:
-        raise NotImplementedError(
-            "the pixel-form generator tail is not ported yet; it waits "
-            "for the pixel-mode slice (s2d_mode=False)")
     act = get_activation(activation)
     num_blocks = sum(1 for k in params if k.startswith("block_"))
-    inp = torch.cat([frame, pre_warp], dim=-1)
+    in_ch = params["conv_1"]["kernel"].shape[-1]
+    if pre_warp is None:
+        inp = frame
+    else:
+        inp = torch.cat([frame, pre_warp if s2d_output
+                         else space_to_depth(pre_warp, 4)], dim=-1)
+    if inp.shape[-1] != in_ch:
+        raise ValueError(
+            f"conv_1 takes {in_ch} channels but the input has "
+            f"{inp.shape[-1]}: prepare the params with frame_only="
+            f"{pre_warp is None}")
     out = act(conv2d(params["conv_1"], inp))
     out = res_blocks_apply(
         params, [f"block_{i + 1}" for i in range(num_blocks)], out,
         activation)
-    return _tail_s2d(params, frame, out, act)
+    if s2d_output:
+        return _tail_s2d(params, frame, out, act)
+    return _tail_pixel(params["pixel_tail"], frame, out, act)
 
 
 def _d2s_group_selector() -> np.ndarray:
@@ -130,16 +142,36 @@ def _block_diag_deconv2(w: torch.Tensor) -> torch.Tensor:
     return w2.reshape(4 * mid, 16 * out_ch)
 
 
-def prepare_generator_resnet(params, dtype: torch.dtype):
+def prepare_generator_resnet(params, dtype: torch.dtype,
+                             s2d_output: bool = True,
+                             frame_only: bool = False):
     """Raw params -> serving params in ``dtype``: ``conv_1`` with
-    ``bn_1`` folded in, every res block folded, and the s2d tail's
-    constants -- deconv1's product and bias, bn_2 tiled over deconv1's
-    4 groups as a scale and offset, deconv2 as the block-diagonal
-    product and bias in d2s4 order, and the x4 bilinear phase kernel."""
+    ``bn_1`` folded in (cut to the 3 frame channels with
+    ``frame_only``, the non-temporal variant), every res block folded,
+    and the tail's constants.  The s2d tail (``s2d_output``) takes
+    deconv1's product and bias, bn_2 tiled over deconv1's 4 groups as a
+    scale and offset, deconv2 as the block-diagonal product and bias in
+    d2s4 order, and the x4 bilinear phase kernel; the pixel tail
+    (``"pixel_tail"``) the two deconv products and biases, bn_2 and the
+    phase kernel."""
     ct1, ct2 = params["conv_trans_1"], params["conv_trans_2"]
     require_float_kernel(ct1)
     require_float_kernel(ct2)
+    conv_1 = params["conv_1"]
+    if frame_only:
+        conv_1 = {**conv_1, "kernel": conv_1["kernel"][..., :3]}
     scale, offset = fold_bn(params["bn_2"])
+    skip = phase_kernel(4, 3, dtype, ct1["kernel"].device)
+    out = {**prepare_res_blocks(params, dtype),
+           "conv_1": fold_conv_bn(conv_1, params["bn_1"], dtype)}
+    if not s2d_output:
+        out["pixel_tail"] = {
+            "conv_trans_1": {k: v.to(dtype) for k, v in ct1.items()},
+            "bn_2": {"scale": scale.to(dtype), "offset": offset.to(dtype)},
+            "conv_trans_2": {k: v.to(dtype) for k, v in ct2.items()},
+            "skip": skip,
+        }
+        return out
     tail_1 = {"kernel": ct1["kernel"].to(dtype)}
     if "bias" in ct1:
         tail_1["bias"] = ct1["bias"].repeat(4).to(dtype)
@@ -147,13 +179,12 @@ def prepare_generator_resnet(params, dtype: torch.dtype):
     if "bias" in ct2:
         tail_2["bias"] = ct2["bias"].repeat(16).to(dtype)
     return {
-        **prepare_res_blocks(params, dtype),
-        "conv_1": fold_conv_bn(params["conv_1"], params["bn_1"], dtype),
+        **out,
         "conv_trans_1": tail_1,
         "bn_2": {"scale": scale.repeat(4).to(dtype),
                  "offset": offset.repeat(4).to(dtype)},
         "conv_trans_2": tail_2,
-        "skip": phase_kernel(4, 3, dtype, ct1["kernel"].device),
+        "skip": skip,
     }
 
 
@@ -173,4 +204,16 @@ def _tail_s2d(params, frame: torch.Tensor, out: torch.Tensor,
         x = x + ct2["bias"]
     x = torch.tanh(x)
     upscaled = phase_upscale(frame, params["skip"])
+    return torch.clamp(upscaled + x, -0.5, 0.5)
+
+
+def _tail_pixel(params, frame: torch.Tensor, out: torch.Tensor,
+                act) -> torch.Tensor:
+    """Generator tail in pixel form: deconv2x -> BN -> act -> deconv2x
+    -> tanh -> + bilinear4(frame) -> clip, (N, 4H, 4W, 3)."""
+    bn = params["bn_2"]
+    x = conv2d_transpose_2x(params["conv_trans_1"], out)
+    x = act(x * bn["scale"] + bn["offset"])
+    x = torch.tanh(conv2d_transpose_2x(params["conv_trans_2"], x))
+    upscaled = depth_to_space(phase_upscale(frame, params["skip"]), 4)
     return torch.clamp(upscaled + x, -0.5, 0.5)

@@ -1,16 +1,24 @@
-"""Recurrent single-frame inference model, s2d serving form.
+"""Recurrent single-frame inference model.
 
-Port of the serving subset of ``joshupscale_tpu/models/inference.py``.
-Per frame:
+Port of ``joshupscale_tpu/models/inference.py``.  Per frame:
 
-    1. pre  = cur/255 - 0.5                        (unless skip_processing)
-    2. flow = FNet(pre, last_frames...)            -> (N, H, W, 32) s2d
-    3. pre_warp = dense_warp_s2d(pre_gen, flow)
-    4. out = Generator(pre, pre_warp)              -> (N, H, W, 48) s2d
-    state': pre_gen' = out, last_frames' = [pre] + last_frames[:-1]
+    1. pre  = cur/255 - 0.5                       (unless skip_processing)
+    2. optional brightness normalization, optional zero-pad to a
+       flow_pad_factor multiple
+    3. flow = FNet(pre_pad, last_frames...)       (s2d: (N, H, W, 32))
+    4. unpad flow; pre_warp = dense_warp(pre_gen, flow)
+    5. out = Generator(pre, pre_warp)             (s2d: (N, H, W, 48))
+       [frame moving average | output_flow: clip(pre_warp)]
+    state': pre_gen' = out (brightness taken back out; u8 with u8_state),
+            last_frames' = [pre_pad] + last_frames[:-1]
 
-``apply`` is functional like the reference; the engine keeps the state
-in fixed device tensors and commits ``new_state`` into them in place.
+``s2d_mode`` (the serving default) keeps the recurrence in
+space-to-depth form; without it the state is the HR frame and the warp
+and the generator's tail run on the HR grid.  ``remove_flow`` is the
+non-temporal variant: no flow net, no state, the generator on the frame
+alone.  ``apply`` is functional like the reference; the engine keeps the
+state in fixed device tensors and commits ``new_state`` into them in
+place.
 """
 
 from __future__ import annotations
@@ -19,39 +27,32 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from joshupscale_torch import DeviceLike, resolve_device
 from joshupscale_torch.models.fnet import prepare_flow_resnet
 from joshupscale_torch.models.generator import prepare_generator_resnet
-from joshupscale_torch.ops.image import postprocess, preprocess
-from joshupscale_torch.ops.space_depth import depth_to_space
-from joshupscale_torch.ops.warp import dense_image_warp_s2d
+from joshupscale_torch.ops.image import brightness, postprocess, preprocess
+from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
+from joshupscale_torch.ops.temporal import frame_moving_avg
+from joshupscale_torch.ops.warp import dense_image_warp, dense_image_warp_s2d
 
 State = Dict[str, Any]
-
-# Options of the reference model that this port does not have yet, with
-# the value that means "off" and the slice that brings them.
-_LATER = {
-    "flow_pad_factor": (None, "the PS2-family slice"),
-    "normalize_brightness": (False, "the PS2-family slice"),
-    "frame_moving_avg": (None, "the deployment-variants slice"),
-    "output_flow": (False, "the deployment-variants slice"),
-    "remove_flow": (False, "the deployment-variants slice"),
-    "u8_state": (False, "the deployment-variants slice"),
-}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class InferenceModel:
-    """Functional recurrent VSR step (s2d serving form).
+    """Functional recurrent VSR step.
 
-    ``flow_apply(params, frames, s2d_output=True)`` and
-    ``generator_apply(params, frame, pre_warp, s2d_output=True)`` are the
-    bound nets; they take the serving params ``prepare_params`` makes.
-    ``compute_dtype`` is the networks' activation dtype.
+    ``flow_apply(params, frames, s2d_output=...)`` and
+    ``generator_apply(params, frame, pre_warp, s2d_output=...)`` are the
+    bound nets; they take the serving params ``prepare_params`` makes
+    (``flow_prepare`` prepares the flow net's).  ``compute_dtype`` is
+    the networks' activation dtype.  ``frame_moving_avg`` is a
+    ``FrameMovingAvgConfig`` or None.
     """
 
-    flow_apply: Callable[..., torch.Tensor]
+    flow_apply: Optional[Callable[..., torch.Tensor]]
     generator_apply: Callable[..., torch.Tensor]
     num_flow_frames: int = 4
     frame_height: int = 270
@@ -66,36 +67,59 @@ class InferenceModel:
     output_flow: bool = False
     remove_flow: bool = False
     u8_state: bool = False
+    flow_prepare: Callable[..., Any] = prepare_flow_resnet
 
     def __post_init__(self):
-        if not self.s2d_mode:
-            raise NotImplementedError(
-                "pixel mode (s2d_mode=False) is not ported yet; it waits "
-                "for the pixel-mode slice")
-        for name, (off, later) in _LATER.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"{name} is not ported yet; it waits for {later}")
-        if self.num_flow_frames < 2:
+        if not self.remove_flow and self.num_flow_frames < 2:
             raise ValueError("flow num_inputs must be >= 2 (current frame "
                              "+ at least one last frame)")
+
+    # -- geometry ----------------------------------------------------------
+
+    def _padded(self, size: int) -> int:
+        f = self.flow_pad_factor
+        return size if f is None else (size + f - 1) // f * f
+
+    @property
+    def padded_height(self) -> int:
+        return self._padded(self.frame_height)
+
+    @property
+    def padded_width(self) -> int:
+        return self._padded(self.frame_width)
 
     @property
     def num_last_frames(self) -> int:
         return self.num_flow_frames - 1
 
+    # -- state -------------------------------------------------------------
+
     def init_state(self, batch_size: int = 1, dtype=torch.float32,
                    device: DeviceLike = None) -> State:
-        """Zero recurrent state: s2d ``pre_gen`` and the last-frames
-        shift register (current frame first), on ``device`` (default:
-        the CUDA device, as ``resolve_device`` reads it)."""
+        """Initial recurrent state on ``device`` (default: the CUDA
+        device, as ``resolve_device`` reads it): ``pre_gen`` (s2d
+        (N, H, W, 48), u8 127 with ``u8_state``; pixel (N, 4H, 4W, 3))
+        and the last-frames shift register at the padded size, current
+        frame first.  Empty under ``remove_flow``."""
         device = resolve_device(device)
+        if self.remove_flow:
+            return {}
         h, w = self.frame_height, self.frame_width
+        if self.s2d_mode and self.u8_state:
+            # u8 127 is about float 0.0 after dequantization (-0.002).
+            pre_gen = torch.full((batch_size, h, w, 48), 127,
+                                 dtype=torch.uint8, device=device)
+        elif self.s2d_mode:
+            pre_gen = torch.zeros((batch_size, h, w, 48), dtype=dtype,
+                                  device=device)
+        else:
+            pre_gen = torch.zeros((batch_size, h * 4, w * 4, 3),
+                                  dtype=dtype, device=device)
+        ph, pw = self.padded_height, self.padded_width
         return {
-            "pre_gen": torch.zeros((batch_size, h, w, 48), dtype=dtype,
-                                   device=device),
+            "pre_gen": pre_gen,
             "last_frames": [
-                torch.zeros((batch_size, h, w, 3), dtype=dtype,
+                torch.zeros((batch_size, ph, pw, 3), dtype=dtype,
                             device=device)
                 for _ in range(self.num_last_frames)
             ],
@@ -112,22 +136,55 @@ class InferenceModel:
             return tree.to(device)
 
         cdt = self.compute_dtype
-        return {
-            "flow": prepare_flow_resnet(to_dev(params["flow"]), cdt),
-            "generator": prepare_generator_resnet(
-                to_dev(params["generator"]), cdt),
-        }
+        out = {"generator": prepare_generator_resnet(
+            to_dev(params["generator"]), cdt,
+            s2d_output=self.s2d_mode and not self.remove_flow,
+            frame_only=self.remove_flow)}
+        if not self.remove_flow:
+            out["flow"] = self.flow_prepare(to_dev(params["flow"]), cdt)
+        return out
+
+    # -- forward -----------------------------------------------------------
+
+    def _pad(self, x: torch.Tensor) -> torch.Tensor:
+        """Zero-pad NHWC ``x`` to the padded size, ``dh // 2`` rows on
+        top (``dw // 2`` columns on the left) and the rest after."""
+        dh = self.padded_height - self.frame_height
+        dw = self.padded_width - self.frame_width
+        if not dh and not dw:
+            return x
+        return F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+
+    def _unpad_flow(self, flow: torch.Tensor, scale: int) -> torch.Tensor:
+        """Crop a flow on the padded grid (``scale`` 1: s2d blocks, i.e.
+        LR pixels; 4: HR pixels) back to the frame."""
+        oy = (self.padded_height - self.frame_height) // 2 * scale
+        ox = (self.padded_width - self.frame_width) // 2 * scale
+        h, w = self.frame_height * scale, self.frame_width * scale
+        if flow.shape[1] == h and flow.shape[2] == w:
+            return flow
+        return flow[:, oy:oy + h, ox:ox + w, :]
+
+    def _preprocess(self, cur_frame: torch.Tensor) -> torch.Tensor:
+        pre = cur_frame if self.skip_processing else preprocess(cur_frame)
+        return pre.to(self.compute_dtype)
 
     def apply(self, params, cur_frame: torch.Tensor,
               state: State) -> Tuple[Dict[str, Any], State]:
         """One recurrent step on serving params (``prepare_params``):
         ``(outputs, new_state)``.
 
-        ``outputs["output_s2d"]`` is the (N, H, W, 48) display tensor in
-        s2d form.  Without ``deferred_display`` it also holds "output",
-        the (N, 4H, 4W, 3) uint8 frame; with ``skip_processing``,
-        "output_denorm", the float HR frame.
+        In s2d mode ``outputs["output_s2d"]`` is the (N, H, W, 48)
+        display tensor.  "output" is the (N, 4H, 4W, 3) uint8 frame,
+        made in the step unless the display is deferred (s2d mode) or
+        ``skip_processing`` holds; with ``skip_processing``,
+        "output_denorm" is the float HR frame.
         """
+        if self.remove_flow:
+            pre = self._preprocess(cur_frame)
+            out = self.generator_apply(params["generator"], pre, None,
+                                       s2d_output=False)
+            return self._hr_outputs(out), state
         inter, flow_state = self.apply_flow_stage(
             params, cur_frame, {"last_frames": state["last_frames"]})
         outputs, gen_state = self.apply_gen_stage(
@@ -136,31 +193,89 @@ class InferenceModel:
 
     def apply_flow_stage(self, params, cur_frame: torch.Tensor,
                          state: State) -> Tuple[Dict[str, Any], State]:
-        """Preprocess + flow net; returns ``{"pre", "flow"}`` and the
-        new ``{"last_frames"}``."""
-        cdt = self.compute_dtype
-        pre = cur_frame if self.skip_processing else preprocess(cur_frame)
-        pre = pre.to(cdt)
-        last_frames = [f.to(cdt) for f in state["last_frames"]]
-        flow = self.flow_apply(params["flow"], [pre] + last_frames,
-                               s2d_output=True)
+        """Preprocess, brightness, pad + flow net; returns ``{"pre",
+        "flow"[, "bright"]}`` and the new ``{"last_frames"}`` (the
+        padded, brightness-normalized frame first)."""
+        pre = self._preprocess(cur_frame)
+        cur_pad = pre
+        inter = {"pre": pre}
+        if self.normalize_brightness:
+            inter["bright"] = brightness(pre)
+            cur_pad = cur_pad - inter["bright"]
+        cur_pad = self._pad(cur_pad)
+        last_frames = [f.to(self.compute_dtype)
+                       for f in state["last_frames"]]
+        flow = self.flow_apply(params["flow"], [cur_pad] + last_frames,
+                               s2d_output=self.s2d_mode)
+        inter["flow"] = self._unpad_flow(flow, 1 if self.s2d_mode else 4)
         new_state = {
-            "last_frames": [pre.to(state["last_frames"][0].dtype)]
+            "last_frames": [cur_pad.to(state["last_frames"][0].dtype)]
             + list(state["last_frames"][:-1]),
         }
-        return {"pre": pre, "flow": flow}, new_state
+        return inter, new_state
 
     def apply_gen_stage(self, params, inter: Dict[str, Any],
                         state: State) -> Tuple[Dict[str, Any], State]:
-        """Warp + generator; returns the outputs and ``{"pre_gen"}``."""
+        """Warp + generator (+ moving average); returns the outputs and
+        ``{"pre_gen"}``."""
         cdt = self.compute_dtype
-        pre_warp = dense_image_warp_s2d(state["pre_gen"].to(cdt),
-                                        inter["flow"])
-        out = self.generator_apply(params["generator"], inter["pre"],
-                                   pre_warp, s2d_output=True)
+        pre_gen = state["pre_gen"]
+        u8_state = self.u8_state and self.s2d_mode
+        if u8_state:
+            # The warp gathers the u8 table and dequantizes in its blend.
+            pre_warp = dense_image_warp_s2d(pre_gen, inter["flow"]).to(cdt)
+        elif self.s2d_mode:
+            pre_warp = dense_image_warp_s2d(pre_gen.to(cdt), inter["flow"])
+        else:
+            pre_warp = dense_image_warp(pre_gen.to(cdt), inter["flow"])
+        bright = inter.get("bright")
+        if bright is not None:
+            pre_warp = pre_warp + bright
+
+        if self.output_flow:
+            # The clipped warp feeds display and state; the reference's
+            # generator is dead code here, so it does not run.
+            out = torch.clamp(pre_warp, -0.5, 0.5)
+        else:
+            out = self.generator_apply(params["generator"], inter["pre"],
+                                       pre_warp, s2d_output=self.s2d_mode)
+            if self.frame_moving_avg is not None:
+                out = self._moving_avg(out, pre_warp)
+        output_raw = out if bright is None else out - bright
+
+        if u8_state:
+            # Clip first: the brightness can push output_raw out of range.
+            new_pre_gen = postprocess(torch.clamp(output_raw, -0.5, 0.5))
+        else:
+            new_pre_gen = output_raw.to(pre_gen.dtype)
+        if not self.s2d_mode:
+            return self._hr_outputs(out), {"pre_gen": new_pre_gen}
         outputs = {"output_s2d": out}
         if self.skip_processing:
             outputs["output_denorm"] = depth_to_space(out, 4).float()
         elif not self.deferred_display:
             outputs["output"] = postprocess(depth_to_space(out, 4))
-        return outputs, {"pre_gen": out.to(state["pre_gen"].dtype)}
+        return outputs, {"pre_gen": new_pre_gen}
+
+    def _hr_outputs(self, out: torch.Tensor) -> Dict[str, Any]:
+        """The outputs of an HR (pixel-form) display frame."""
+        if self.skip_processing:
+            return {"output_denorm": out.float()}
+        return {"output": postprocess(out)}
+
+    def _moving_avg(self, gen: torch.Tensor,
+                    pre_warp: torch.Tensor) -> torch.Tensor:
+        """``frame_moving_avg``; on s2d tensors, window 0 runs on an
+        (N, Hb, Wb*16, 3) view (a global mean and elementwise work do
+        not care for the layout), a window through the HR grid."""
+        cfg = self.frame_moving_avg
+        if not self.s2d_mode:
+            return frame_moving_avg(gen, pre_warp, cfg)
+        if cfg.window == 0:
+            n, hb, wb, cs = gen.shape
+            view = (n, hb, wb * (cs // 3), 3)
+            out = frame_moving_avg(gen.reshape(view),
+                                   pre_warp.reshape(view), cfg)
+            return out.reshape(gen.shape)
+        return space_to_depth(frame_moving_avg(
+            depth_to_space(gen, 4), depth_to_space(pre_warp, 4), cfg), 4)

@@ -1,7 +1,8 @@
 """Config-driven model registry (serving subset).
 
 Port of ``create_models`` from ``joshupscale_tpu/models/registry.py`` for
-the factories ``flow-resnet``, ``generator-resnet`` and ``inference``.
+the factories ``flow-resnet``, ``flow-autoencoder``, ``generator-resnet``
+and ``inference``.
 Entries name a factory; values of the form ``{"model": <name>}``
 cross-reference other entries; ``weights`` loads a flat ``.npz``
 (optionally a dotted ``prefix`` subtree of it).  Initialization is
@@ -20,6 +21,7 @@ import torch
 
 from joshupscale_torch.models import fnet, generator
 from joshupscale_torch.models.inference import InferenceModel
+from joshupscale_torch.ops.temporal import FrameMovingAvgConfig
 
 
 @dataclasses.dataclass
@@ -31,6 +33,9 @@ class BuiltModel:
     apply: Optional[Callable[..., Any]] = None
     obj: Any = None
     config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # Raw params -> serving params (a net's ``prepare_*``), where the
+    # net has one.
+    prepare: Optional[Callable[..., Any]] = None
 
 
 DTYPES = {
@@ -49,7 +54,20 @@ def _build_flow_resnet(rng, *, num_inputs=4, num_filters=64,
     apply = functools.partial(fnet.flow_resnet_apply, activation=activation,
                               num_res_blocks=num_res_blocks)
     return BuiltModel(kind="flow-resnet", params=params, apply=apply,
-                      config={"num_inputs": num_inputs})
+                      config={"num_inputs": num_inputs},
+                      prepare=fnet.prepare_flow_resnet)
+
+
+def _build_flow_autoencoder(rng, *, num_inputs=4, filters=None,
+                            activation="relu", **_):
+    params = fnet.flow_autoencoder_init(rng, num_inputs=num_inputs,
+                                        filters=filters)
+    # The apply reads the ladder from the param tree.
+    apply = functools.partial(fnet.flow_autoencoder_apply,
+                              activation=activation)
+    return BuiltModel(kind="flow-autoencoder", params=params, apply=apply,
+                      config={"num_inputs": num_inputs},
+                      prepare=fnet.prepare_flow_autoencoder)
 
 
 def _build_generator_resnet(rng, *, num_filters=64, num_res_blocks=24,
@@ -72,14 +90,17 @@ def _build_inference(rng, *, generator_model: BuiltModel,
                      flow_pad_factor=None, normalize_brightness=False,
                      frame_moving_avg=None, output_flow=False,
                      remove_flow=False, u8_state=False, **_):
-    if flow_model is None:
-        raise NotImplementedError(
-            "inference without a flow model (remove_flow) is not ported "
-            "yet; it waits for the deployment-variants slice")
+    if frame_moving_avg is not None and not isinstance(
+            frame_moving_avg, FrameMovingAvgConfig):
+        frame_moving_avg = FrameMovingAvgConfig(**frame_moving_avg)
+    if flow_model is None and not remove_flow:
+        raise ValueError("inference needs a flow model unless remove_flow")
+    use_flow = flow_model is not None and not remove_flow
     model = InferenceModel(
-        flow_apply=flow_model.apply,
+        flow_apply=flow_model.apply if use_flow else None,
         generator_apply=generator_model.apply,
-        num_flow_frames=flow_model.config.get("num_inputs", 4),
+        num_flow_frames=(flow_model.config.get("num_inputs", 4)
+                         if use_flow else 0),
         frame_height=frame_height or 270,
         frame_width=frame_width or 480,
         skip_processing=skip_processing,
@@ -92,21 +113,25 @@ def _build_inference(rng, *, generator_model: BuiltModel,
         output_flow=output_flow,
         remove_flow=remove_flow,
         u8_state=u8_state,
+        flow_prepare=(flow_model.prepare if use_flow
+                      else fnet.prepare_flow_resnet),
     )
-    params = {"generator": generator_model.params, "flow": flow_model.params}
+    params = {"generator": generator_model.params}
+    if flow_model is not None:
+        params["flow"] = flow_model.params
     return BuiltModel(kind="inference", params=params, obj=model,
                       apply=model.apply)
 
 
 MODELS: Dict[str, Callable[..., BuiltModel]] = {
     "flow-resnet": _build_flow_resnet,
+    "flow-autoencoder": _build_flow_autoencoder,
     "generator-resnet": _build_generator_resnet,
     "inference": _build_inference,
 }
 
 # Factories of the reference that later slices bring.
 _LATER_MODELS = {
-    "flow-autoencoder": "the PS2-family slice",
     "discriminator": "the training slice",
     "vgg": "the training slice",
     "frvsr": "the training slice",

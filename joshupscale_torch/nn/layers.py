@@ -4,7 +4,8 @@ Port of ``joshupscale_tpu/nn/layers.py``.  Activations are NHWC.  Conv
 kernels are stored OHWI ``(out, kh, kw, in)``: ``kernel.permute(0, 3,
 1, 2)`` is the OIHW view ``F.conv2d`` takes (channels-last strides, no
 copy), and the res-block kernel (``kernels/resblock.py``) reads OHWI
-directly.  ``export/weights.py`` converts the reference's HWIO kernels.
+directly.  Kernel-2 stride-2 deconvs are stored as their (I, 4*O) 1x1
+product.  ``export/weights.py`` converts the reference's kernels.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from joshupscale_torch.ops.space_depth import depth_to_space
 
 BN_EPS = 1e-3
 
@@ -60,6 +63,20 @@ def conv2d(params, x: torch.Tensor) -> torch.Tensor:
     if "bias" in params:
         out = out + params["bias"].to(x.dtype)
     return out.contiguous()
+
+
+def conv2d_transpose_2x(params, x: torch.Tensor) -> torch.Tensor:
+    """Transposed conv, kernel 2, stride 2, on the stored 1x1 product:
+    ``params["kernel"]`` is (I, 4*O) with output channel
+    ``(dy*2 + dx)*O + o`` (``export/weights.py`` makes it from the
+    reference's (2, 2, O, I) kernel).  The product, ``depth_to_space(2)``,
+    then the bias, in ``x.dtype``: the taps of a kernel-2 stride-2
+    deconv do not overlap, so this is the deconv exactly."""
+    require_float_kernel(params)
+    out = depth_to_space(torch.matmul(x, params["kernel"].to(x.dtype)), 2)
+    if "bias" in params:
+        out = out + params["bias"].to(x.dtype)
+    return out
 
 
 def batch_norm_init(num_ch: int):

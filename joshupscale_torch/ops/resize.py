@@ -1,15 +1,22 @@
-"""TF1-semantics bilinear upscale (align_corners=False, half_pixel=False).
+"""TF1-semantics bilinear resize (align_corners=False, half_pixel=False).
 
-Port of the integer-factor path of ``joshupscale_tpu/ops/resize.py``.
-The model family was trained on the legacy TF1 grid
-``src = dst * (in_size / out_size)`` with no half-pixel shift; no torch
-resize mode reproduces it.  For scale ``s`` output pixel ``(s*i + ry,
-s*j + rx)`` samples ``(i + ry/s, j + rx/s)``, so the op is a fixed 2x2
-phase kernel on a trailing-edge-padded frame followed by
-``depth_to_space``.
+Port of ``joshupscale_tpu/ops/resize.py``.  The model family was trained
+on the legacy TF1 grid ``src = dst * (in_size / out_size)`` with no
+half-pixel shift; no torch resize mode reproduces it.  For an integer
+scale ``s`` output pixel ``(s*i + ry, s*j + rx)`` samples ``(i + ry/s, j +
+rx/s)``: up to 8 channels that is a fixed 2x2 phase kernel on a
+trailing-edge-padded frame followed by ``depth_to_space``; wider tensors
+take the broadcast form (the phase kernel would be a large block
+diagonal).  Other sizes gather rows and columns by per-axis tables.
+
+Constant tables on a device (phase kernels, broadcast weights, per-axis
+indices) are built once per shape, dtype and device and kept, so a step
+that resizes copies nothing from the host after its first call.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +46,9 @@ def phase_kernel(s: int, c: int, dtype: torch.dtype = torch.float32,
             device, dtype)
 
 
+_cached_phase_kernel = functools.lru_cache(maxsize=64)(phase_kernel)
+
+
 def phase_upscale(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """Edge-pad + the 2x2 ``phase_kernel`` conv: the bilinear upscale of
     NHWC ``x`` as s2d-form phase channels (N, H, W, s*s*C)."""
@@ -54,19 +64,79 @@ def _upscale_bilinear_conv(x: torch.Tensor, s: int,
     ``skip_d2s=True`` returns the s2d-form phase channels
     (N, H, W, s*s*C) for consumers that stay in s2d space.
     """
-    out = phase_upscale(x, phase_kernel(s, x.shape[-1], x.dtype, x.device))
+    out = phase_upscale(x, _cached_phase_kernel(s, x.shape[-1], x.dtype,
+                                                x.device))
     if skip_d2s:
         return out
     return depth_to_space(out, s)
 
 
+@functools.lru_cache(maxsize=64)
+def _broadcast_weights(s: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """(4, 1, 1, s, 1, s, 1) weights of the corners x00, x01, x10, x11
+    for each output phase (ry, rx), float32 as the reference computes
+    them, then cast to ``dtype``.  A constant, kept per device."""
+    ry = (np.arange(s, dtype=np.float32) / s).reshape(s, 1)
+    rx = (np.arange(s, dtype=np.float32) / s).reshape(1, s)
+    w = np.stack([(1 - ry) * (1 - rx), (1 - ry) * rx, ry * (1 - rx),
+                  ry * rx]).astype(np.float32)
+    return torch.from_numpy(w).to(device, dtype).view(4, 1, 1, s, 1, s, 1)
+
+
 def upscale_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """Bilinear x``scale`` upscale, TF1 legacy grid, edge clamped."""
+    """Bilinear x``scale`` upscale, TF1 legacy grid, edge clamped.
+
+    Wide tensors (more than 8 channels) take the broadcast form: output
+    (N, H, s, W, s, C) is ``x00*w00 + x01*w01 + x10*w10 + x11*w11`` in
+    that order, in ``x.dtype``, each corner broadcast over the phases.
+    """
+    n, h, w, c = x.shape
     s = int(scale)
     if s == 1:
         return x
-    if x.shape[-1] > 8:
-        raise NotImplementedError(
-            "upscale_bilinear for more than 8 channels (the broadcast "
-            "path) is not ported yet; it waits for the PS2-family slice")
-    return _upscale_bilinear_conv(x, s)
+    if c <= 8:
+        return _upscale_bilinear_conv(x, s)
+    xp = _edge_pad_hw(x)[:, :, None, :, None, :]  # (N, H+1, 1, W+1, 1, C)
+    wts = _broadcast_weights(s, x.dtype, x.device)
+    out = xp[:, :h, :, :w] * wts[0]
+    out = out + xp[:, :h, :, 1:] * wts[1]
+    out = out + xp[:, 1:, :, :w] * wts[2]
+    out = out + xp[:, 1:, :, 1:] * wts[3]
+    return out.reshape(n, h * s, w * s, c)
+
+
+def _tf1_indices(out_size: int, in_size: int):
+    """Legacy-grid source indices and weights for one axis (numpy)."""
+    scale = in_size / out_size
+    src = np.arange(out_size, dtype=np.float64) * scale
+    lo = np.floor(src).astype(np.int64)
+    lo = np.minimum(lo, in_size - 1)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = (src - np.floor(src)).astype(np.float32)
+    return lo, hi, frac
+
+
+@functools.lru_cache(maxsize=64)
+def _tf1_tables(out_size: int, in_size: int, dtype: torch.dtype, device):
+    lo, hi, frac = _tf1_indices(out_size, in_size)
+    return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),
+            torch.from_numpy(frac).to(device, dtype))
+
+
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """General-size TF1 bilinear resize (align_corners=F, half_pixel=F).
+
+    An integer upscale by the same factor on both axes goes to
+    ``upscale_bilinear``; other sizes interpolate rows, then columns.
+    """
+    n, h, w, c = x.shape
+    if out_h % h == 0 and out_w % w == 0 and out_h // h == out_w // w:
+        return upscale_bilinear(x, out_h // h)
+    ylo, yhi, yf = _tf1_tables(out_h, h, x.dtype, x.device)
+    xlo, xhi, xf = _tf1_tables(out_w, w, x.dtype, x.device)
+    top = x[:, ylo]
+    bot = x[:, yhi]
+    row = top + (bot - top) * yf.view(1, out_h, 1, 1)
+    left = row[:, :, xlo]
+    right = row[:, :, xhi]
+    return left + (right - left) * xf.view(1, 1, out_w, 1)

@@ -1,25 +1,70 @@
-"""Dense image warp in space-to-depth form, tfa edge-clamp semantics.
+"""Dense image warp, pixel and space-to-depth forms, tfa edge-clamp
+semantics.
 
-Port of ``dense_image_warp_s2d`` from ``joshupscale_tpu/ops/warp.py``
-(float table, ``gather_mode="promise"`` semantics):
+Port of ``dense_image_warp`` and ``dense_image_warp_s2d`` from
+``joshupscale_tpu/ops/warp.py`` (the s2d form with
+``gather_mode="promise"`` semantics, float or u8 table):
 
     output[b, y, x, c] = bilinear_sample(image, (y - flow_y, x - flow_x))
 
-computed on s2d-form tensors.  The floor corner is clamped to
-``[0, size - 2]`` and the interpolation weight to ``[0, 1]``, so queries
-outside the image reproduce the nearest edge pixel.  Index math stays in
-float32: bfloat16 cannot represent pixel coordinates above 256 exactly.
-``grid_sample`` is not used: its normalised coordinates do not give this
-grid.
+The floor corner is clamped to ``[0, size - 2]`` and the interpolation
+weight to ``[0, 1]``, so queries outside the image reproduce the nearest
+edge pixel.  Index math stays in float32: bfloat16 cannot represent
+pixel coordinates above 256 exactly.  ``grid_sample`` is not used: its
+normalised coordinates do not give this grid.
 
-Plain torch ops for now (one row gather from the 75-lane
-corner-subposition table, then the separable 5x5 combine); a Hopper
-kernel for the gather + combine is queued in ROADMAP.md.
+Plain torch ops for now (one row gather, then the bilinear blend); a
+Hopper kernel for the s2d gather + combine is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _floor_and_alpha(q: torch.Tensor, size: int):
+    """Clamped floor index (int64) and interpolation weight (float32) of
+    float32 query coordinates along an axis of ``size``."""
+    f = torch.clamp(torch.floor(q), 0.0, float(size - 2))
+    return f.to(torch.int64), torch.clamp(q - f, 0.0, 1.0)
+
+
+def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp a pixel-form image by a per-pixel flow.
+
+    image: (N, H, W, C) float; flow: (N, H, W, 2), channel 0 the y
+    offset, 1 the x offset.  The four corners come from one gather of
+    ``4C``-lane rows ``[p, p+x1, p+y1, p+x1y1]`` built from edge-clamped
+    shifts; the blend runs in ``image.dtype``.
+    """
+    n, h, w, c = image.shape
+    dev = image.device
+    out_dtype = image.dtype
+    flow32 = flow.to(torch.float32)
+    qy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) \
+        - flow32[..., 0]
+    qx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) \
+        - flow32[..., 1]
+    iy, ay = _floor_and_alpha(qy, h)
+    ix, ax = _floor_and_alpha(qx, w)
+
+    img_x1 = torch.cat([image[:, :, 1:], image[:, :, -1:]], dim=2)
+    img_y1 = torch.cat([image[:, 1:], image[:, -1:]], dim=1)
+    img_xy = torch.cat([img_y1[:, :, 1:], img_y1[:, :, -1:]], dim=2)
+    corners = torch.cat([image, img_x1, img_y1, img_xy], dim=-1)
+
+    lin = iy * w + ix
+    if n > 1:
+        lin = lin + (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
+    rows = corners.reshape(n * h * w, 4 * c)[lin.reshape(-1)]
+    rows = rows.reshape(n, h, w, 4, c)
+
+    ay = ay[..., None].to(out_dtype)
+    ax = ax[..., None].to(out_dtype)
+    tl, tr, bl, br = rows.unbind(dim=3)
+    top = tl + (tr - tl) * ax
+    bot = bl + (br - bl) * ax
+    return top + (bot - top) * ay
 
 
 def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
@@ -28,26 +73,28 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
 
     Parameters
     ----------
-    image_s2d : (N, Hb, Wb, B*B*C) s2d-form float image (channel order
-        ``(ry, rx, c)`` like ``tf.nn.space_to_depth``).
+    image_s2d : (N, Hb, Wb, B*B*C) s2d-form image (channel order
+        ``(ry, rx, c)`` like ``tf.nn.space_to_depth``), float, or uint8
+        (the u8-state tier: the gathered u8 rows become bfloat16, the
+        combine runs in bfloat16 on the raw 0..255 values, and one
+        float32 affine ``acc/255 - 0.5`` maps back, exact because the
+        bilinear weights sum to 1).
     flow_s2d : (N, Hb, Wb, B*B*2) s2d-form flow (the flow net's head
         output before its depth_to_space; channel ``(ry, rx, {y, x})``).
 
     Returns
     -------
-    (N, Hb, Wb, B*B*C) warped image in s2d form, dtype of ``image_s2d``.
+    (N, Hb, Wb, B*B*C) warped image in s2d form, in ``image_s2d``'s
+    dtype (bfloat16 for a uint8 image).
     """
-    if not image_s2d.is_floating_point():
-        raise NotImplementedError(
-            "the u8-table warp (u8_state) is not ported yet; it waits "
-            "for the deployment-variants slice")
     n, hb, wb, cs = image_s2d.shape
     b = block
     p2 = b * b
     c = cs // p2
     h, w = hb * b, wb * b
     dev = image_s2d.device
-    out_dtype = image_s2d.dtype
+    u8 = image_s2d.dtype == torch.uint8
+    out_dtype = torch.bfloat16 if u8 else image_s2d.dtype
 
     # Table row = the (b+1)^2 corner subpositions one output pixel can
     # touch: base block (b*b*c lanes) + the x-neighbour's first column
@@ -70,15 +117,10 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     px_off = (phase % b).to(torch.float32)
     by = torch.arange(hb, device=dev, dtype=torch.float32).view(1, hb, 1, 1)
     bx = torch.arange(wb, device=dev, dtype=torch.float32).view(1, 1, wb, 1)
-    qy = by * b + py_off - fy_flow
-    qx = bx * b + px_off - fx_flow
-
-    fy = torch.clamp(torch.floor(qy), 0.0, float(h - 2))
-    fx = torch.clamp(torch.floor(qx), 0.0, float(w - 2))
-    iy = fy.to(torch.int64)
-    ix = fx.to(torch.int64)
-    ay = torch.clamp(qy - fy, 0.0, 1.0).to(out_dtype)[..., None]
-    ax = torch.clamp(qx - fx, 0.0, 1.0).to(out_dtype)[..., None]
+    iy, ay = _floor_and_alpha(by * b + py_off - fy_flow, h)
+    ix, ax = _floor_and_alpha(bx * b + px_off - fx_flow, w)
+    ay = ay.to(out_dtype)[..., None]
+    ax = ax.to(out_dtype)[..., None]
 
     # ---- corner-subposition table: [S | S>x col0 | S>y row0 | S>xy c] ---
     sx_img = torch.cat([image_s2d[:, :, 1:], image_s2d[:, :, -1:]], dim=2)
@@ -101,7 +143,7 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     # (N, Hb, Wb, 16, c) slab, so the combine below multiplies dense
     # tensors instead of strided lane slices (same values, same order).
     slabs = rows.reshape(n, hb, wb, p2, lanes // c, c).permute(
-        4, 0, 1, 2, 3, 5).contiguous()
+        4, 0, 1, 2, 3, 5).to(out_dtype).contiguous()
 
     # ---- separable combine over the 5x5 possible corner offsets ---------
     # Corner (dy, dx) sits at sub-position (iy % b + dy, ix % b + dx);
@@ -118,4 +160,6 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
         for sx in range(b + 1):
             slab = slabs[corner_lane(sy, sx) // c]
             acc = acc + slab * (wy * wxs[sx])
+    if u8:
+        acc = (acc.float() * (1.0 / 255.0) - 0.5).to(out_dtype)
     return acc.reshape(n, hb, wb, p2 * c)

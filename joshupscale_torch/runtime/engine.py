@@ -6,7 +6,8 @@ fixed device tensors updated in place: ``pre_gen`` is overwritten after
 the generator has consumed its warp, and the last-frames shift register
 is rotated (the oldest buffer takes the new frame and moves to the
 front), so a frame copies one LR frame into the register and nothing
-else.  With deferred display the step yields the s2d display tensor and
+else.  The non-temporal variant (``remove_flow``) has no state.  With
+deferred display (s2d mode) the step yields the s2d display tensor and
 the engine converts it with the d2s+u8 kernel (``kernels/display.py``).
 
 ``process_async``, ``benchmark`` and ``debug_report`` are not ported
@@ -40,7 +41,11 @@ class Engine:
         self.model = model
         self.batch_size = batch_size
         self.params = model.prepare_params(params, self.device)
-        self._deferred = model.deferred_display and not model.skip_processing
+        # As the reference's: only the s2d step emits the s2d display
+        # tensor; the non-temporal step's output is the u8 HR frame.
+        self._deferred = (model.deferred_display and model.s2d_mode
+                          and not model.skip_processing
+                          and not model.remove_flow)
         self.state = model.init_state(batch_size, device=self.device)
         self.frames_processed = 0
         self.total_process_seconds = 0.0
@@ -60,10 +65,16 @@ class Engine:
     # -- streaming ---------------------------------------------------------
 
     def reset(self) -> None:
-        """Zero the recurrent state (new stream / seek)."""
-        self.state["pre_gen"].zero_()
-        for buf in self.state["last_frames"]:
-            buf.zero_()
+        """Restore the initial recurrent state (new stream / seek), in
+        the engine's own buffers: ``init_state``'s values (zeros, or u8
+        127 for a u8 state)."""
+        fresh = self.model.init_state(self.batch_size, device=self.device)
+        if not fresh:
+            return
+        self.state["pre_gen"].copy_(fresh["pre_gen"])
+        for buf, init in zip(self.state["last_frames"],
+                             fresh["last_frames"]):
+            buf.copy_(init)
 
     def step(self, frame: torch.Tensor) -> torch.Tensor:
         """One recurrent step on a device frame (N, H, W, 3); returns the
@@ -72,11 +83,12 @@ class Engine:
         with torch.inference_mode():
             outputs, new_state = self.model.apply(self.params, frame,
                                                   self.state)
-            self.state["pre_gen"].copy_(new_state["pre_gen"])
-            frames = self.state["last_frames"]
-            oldest = frames[-1]
-            oldest.copy_(new_state["last_frames"][0])
-            self.state["last_frames"] = [oldest] + frames[:-1]
+            if new_state:
+                self.state["pre_gen"].copy_(new_state["pre_gen"])
+                frames = self.state["last_frames"]
+                oldest = frames[-1]
+                oldest.copy_(new_state["last_frames"][0])
+                self.state["last_frames"] = [oldest] + frames[:-1]
         if self._deferred:
             return outputs["output_s2d"]
         return outputs.get("output", outputs.get("output_denorm"))

@@ -65,11 +65,12 @@ def _operands(gen, c, dtype, shape, device):
 
 # (2, 19, 37) cuts across the bf16 kernel's 8 x 16 tiles on both axes,
 # (1, 5, 7) is narrower and shorter than one tile, (1, 270, 480) is the
-# main path's shape (H = 270 is not a multiple of 8).
+# serving paths' shape (H = 270 is not a multiple of 8): C = 64 on the
+# quality and PS2-style tiers, 48 (96-byte rows) on PS2-fast.
 _K1_CASES = ([(c, dt, (2, 19, 37)) for c in (32, 48, 64)
               for dt in (torch.bfloat16, torch.float32)]
              + [(c, torch.bfloat16, (1, 5, 7)) for c in (32, 48, 64)]
-             + [(64, torch.bfloat16, (1, 270, 480))])
+             + [(c, torch.bfloat16, (1, 270, 480)) for c in (64, 48)])
 
 
 @pytest.mark.parametrize("c,dtype,shape", _K1_CASES,
@@ -232,6 +233,61 @@ def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
                       - on_cpu.process(f).astype(np.int32))
         assert diff.max() <= (1 if compute_dtype == "float32" else 2)
     assert resblock_conv3x3.launches == before + 4 * 2 * 4
+
+
+def _ps2_config(compute_dtype, **options):
+    config = {
+        "flow": {"name": "flow-autoencoder", "num_inputs": 4,
+                 "filters": [16, 32, 64, 32, 16]},
+        "generator": {"name": "generator-resnet", "num_filters": 48,
+                      "num_res_blocks": 2},
+        "inference": {"name": "inference", "flow": {"model": "flow"},
+                      "generator": {"model": "generator"},
+                      "skip_processing": False, "frame_height": 21,
+                      "frame_width": 38, "compute_dtype": compute_dtype,
+                      "flow_pad_factor": 8, "normalize_brightness": True,
+                      **options},
+    }
+    if options.get("remove_flow"):
+        del config["flow"], config["inference"]["flow"]
+    return config
+
+
+_OPTIONS = {
+    "ps2": {}, "u8_state": {"u8_state": True},
+    "moving_avg": {"frame_moving_avg": {"strength": 0.7,
+                                        "threshold": 0.1}},
+    "moving_avg_window": {"frame_moving_avg": {"strength": 0.7,
+                                               "threshold": 0.1,
+                                               "window": 8}},
+    "output_flow": {"output_flow": True}, "remove_flow": {"remove_flow": True},
+    "pixel_mode": {"s2d_mode": False},
+}
+_OPTION_CASES = [(o, "float32") for o in _OPTIONS] + [("ps2", "bfloat16")]
+
+
+@pytest.mark.parametrize("option,compute_dtype", _OPTION_CASES)
+def test_serving_option_cuda_matches_cpu(gen, cuda, option, compute_dtype):
+    """The PS2 configuration (autoencoder, 21x38 padded to 24x40,
+    brightness) and each serving option on it, on the card vs on the
+    CPU, 4 frames: u8 within 1 step in f32, 2 in bf16, as the quality
+    tier's test; K1 runs 2 a res block except under output_flow, K2
+    once a frame on the deferred s2d paths only."""
+    built = create_models(_ps2_config(compute_dtype, **_OPTIONS[option]),
+                          seed=3)["inference"]
+    on_card = Engine(built.obj, built.params)
+    on_cpu = Engine(built.obj, built.params, device="cpu")
+    frames = gen.integers(0, 256, (4, 21, 38, 3)).astype(np.uint8)
+    k1, k2 = resblock_conv3x3.launches, d2s_display_u8.launches
+    for f in frames:
+        diff = np.abs(on_card.process(f).astype(np.int32)
+                      - on_cpu.process(f).astype(np.int32))
+        assert diff.max() <= (1 if compute_dtype == "float32" else 2)
+    deferred = option not in ("remove_flow", "pixel_mode")
+    assert on_card._deferred == deferred
+    assert resblock_conv3x3.launches == k1 + (
+        0 if option == "output_flow" else 4 * 2 * 2)
+    assert d2s_display_u8.launches == k2 + (4 if deferred else 0)
 
 
 def test_engine_step_does_not_sync(gen, cuda):

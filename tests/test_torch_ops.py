@@ -89,9 +89,14 @@ def test_upscale_bilinear_conv(rng, skip_d2s):
             atol=1e-6, rtol=0)
 
 
-def test_upscale_bilinear_wide_raises():
-    with pytest.raises(NotImplementedError):
-        tresize.upscale_bilinear(torch.zeros(1, 4, 4, 16), 2)
+def test_upscale_bilinear_wide_matches_jax(rng):
+    """More than 8 channels (the broadcast form), f32 within 1e-6: the
+    same four products summed in the same order."""
+    x = rng.random((1, 4, 4, 16), np.float32) - 0.5
+    np.testing.assert_allclose(
+        tresize.upscale_bilinear(_t(x), 2).numpy(),
+        np.asarray(jresize.upscale_bilinear(jnp.asarray(x), 2)),
+        atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("ksize,bias", [(3, False), (3, True), (1, True)])

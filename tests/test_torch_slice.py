@@ -16,7 +16,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from joshupscale_tpu.export.importer import flatten_params, unflatten_into
+from _torch_parity import engines, flat_params
+from joshupscale_tpu.export.importer import unflatten_into
 from joshupscale_tpu.export.package import save_package
 from joshupscale_tpu.models import create_models as j_create_models
 from joshupscale_tpu.models.fnet import flow_resnet_apply as j_flow
@@ -54,34 +55,13 @@ def _config(compute_dtype="float32", **inference):
     }
 
 
-def _flat_params(config, seed=0):
-    """Reference params (BN stats perturbed) as the flat numpy dict."""
-    built = j_create_models(config, seed=seed)["inference"]
-    rng = np.random.default_rng(seed + 100)
-    flat = flatten_params(built.params)
-    for k, v in flat.items():
-        if k.endswith("moving_mean"):
-            flat[k] = (rng.standard_normal(v.shape) * 0.1).astype(np.float32)
-        elif k.endswith("moving_variance"):
-            flat[k] = (1 + rng.random(v.shape)).astype(np.float32)
-    return built, flat
-
-
-def _engines(config, seed=0):
-    built, flat = _flat_params(config, seed)
-    j_engine = JEngine(built.obj, unflatten_into(built.params, flat))
-    t_built = create_models(config, seed=seed)["inference"]
-    t_engine = Engine(t_built.obj, from_flat_numpy(flat), device="cpu")
-    return j_engine, t_engine
-
-
 def _frames(rng, t):
     return rng.integers(0, 256, (t, H, W, 3)).astype(np.uint8)
 
 
 def test_flow_resnet_s2d_matches_jax(rng):
     """f32 within 1e-4: 2 res blocks + head; sums in another order."""
-    _, flat = _flat_params(_config())
+    _, flat = flat_params(_config())
     jp = {k[len("flow."):]: jnp.asarray(v) for k, v in flat.items()
           if k.startswith("flow.")}
     tp = prepare_flow_resnet(from_flat_numpy(flat)["flow"], torch.float32)
@@ -97,7 +77,7 @@ def test_flow_resnet_s2d_matches_jax(rng):
 
 def test_generator_s2d_tail_matches_jax(rng):
     """f32 within 1e-4: conv, 2 res blocks and the s2d tail."""
-    _, flat = _flat_params(_config())
+    _, flat = flat_params(_config())
     jp = {k[len("generator."):]: jnp.asarray(v) for k, v in flat.items()
           if k.startswith("generator.")}
     jparams = unflatten_into(
@@ -117,7 +97,7 @@ def test_generator_s2d_tail_matches_jax(rng):
 def test_engine_matches_jax_f32_recurrent(rng):
     """12 recurrent frames: u8 within 1 step (f32 round-off can tip a
     truncating cast by one)."""
-    j_engine, t_engine = _engines(_config())
+    j_engine, t_engine = engines(_config())
     assert t_engine._deferred
     for frame in _frames(rng, 12):
         ref = j_engine.process(frame)
@@ -132,7 +112,7 @@ def test_engine_matches_jax_bf16(rng):
     values differing.  bf16 keeps 8 bits, about one u8 step at 0.5, and
     the port rounds the res-block epilogue once in f32 where the
     reference rounds the conv and the BN apart."""
-    j_engine, t_engine = _engines(_config("bfloat16"))
+    j_engine, t_engine = engines(_config("bfloat16"))
     for frame in _frames(rng, 3):
         ref = j_engine.process(frame).astype(np.int32)
         got = t_engine.process(frame).astype(np.int32)
@@ -146,7 +126,7 @@ def test_step_builds_no_host_constants(rng, monkeypatch):
     block-diagonal product, the bilinear phase kernel) is made when the
     engine is built: on a card a tensor made from host data inside the
     step would stall it on the copy."""
-    _, t_engine = _engines(_config("bfloat16"))
+    _, t_engine = engines(_config("bfloat16"))
     frame = torch.from_numpy(_frames(rng, 1))
 
     def refuse(*args, **kwargs):
@@ -159,7 +139,7 @@ def test_step_builds_no_host_constants(rng, monkeypatch):
 
 
 def test_process_clip_equals_streaming_and_reset(rng):
-    _, t_engine = _engines(_config())
+    _, t_engine = engines(_config())
     frames = _frames(rng, 5)
     streamed = np.stack([t_engine.process(f) for f in frames])
     t_engine.reset()
@@ -176,7 +156,7 @@ def test_process_clip_equals_streaming_and_reset(rng):
 
 
 def test_inline_display_equals_deferred(rng):
-    _, flat = _flat_params(_config())
+    _, flat = flat_params(_config())
     params = from_flat_numpy(flat)
     frames = _frames(rng, 3)
     outs = []
@@ -193,11 +173,11 @@ def test_package_roundtrip_serves_same_frames(rng, tmp_path):
     the port engine built from the carried params (exact) and the JAX
     engine (within 1 step)."""
     config = _config()
-    built, flat = _flat_params(config)
+    built, flat = flat_params(config)
     built.params = unflatten_into(built.params, flat)
     save_package(str(tmp_path), config, built)
     loaded = create_runtime(str(tmp_path), device="cpu")
-    _, t_engine = _engines(config)
+    _, t_engine = engines(config)
     j_engine = JEngine(built.obj, built.params)
     for frame in _frames(rng, 3):
         got = loaded.process(frame)
@@ -211,7 +191,7 @@ def test_package_roundtrip_serves_same_frames(rng, tmp_path):
 
 
 def test_bad_inputs_and_no_cuda_raise(rng, monkeypatch):
-    _, t_engine = _engines(_config())
+    _, t_engine = engines(_config())
     with pytest.raises(ValueError):
         t_engine.process(np.zeros((H + 1, W, 3), np.uint8))
     with pytest.raises(ValueError):
@@ -240,15 +220,23 @@ def test_init_state_runs_on_the_card_unless_asked(monkeypatch):
     {"flow_pad_factor": 8},
     {"frame_moving_avg": {"strength": 0.7, "threshold": 0.1}},
 ])
-def test_unported_variants_raise(option):
-    with pytest.raises(NotImplementedError):
-        create_models(_config(**option))
+def test_serving_option_matches_jax(rng, option):
+    """Each serving option of the reference's inference model builds on
+    the port and serves 2 recurrent frames within 1 u8 step of it (f32;
+    the options' own parity tests run longer in test_torch_variants.py
+    and test_torch_ps2.py)."""
+    j_engine, t_engine = engines(_config(**option))
+    for frame in _frames(rng, 2):
+        ref = j_engine.process(frame).astype(np.int32)
+        got = t_engine.process(frame).astype(np.int32)
+        assert np.abs(got - ref).max() <= 1
 
 
 def test_unported_model_types_raise():
+    """Model types of the training slice are refused by name."""
     config = _config()
-    config["flow"] = {"name": "flow-autoencoder"}
-    with pytest.raises(NotImplementedError):
+    config["flow"] = {"name": "discriminator"}
+    with pytest.raises(NotImplementedError, match="discriminator"):
         create_models(config)
 
 

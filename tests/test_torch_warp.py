@@ -68,7 +68,16 @@ def test_warp_s2d_bf16_bound(rng):
     np.testing.assert_allclose(got.float().numpy(), ref, atol=0.02, rtol=0)
 
 
-def test_warp_u8_table_raises():
-    with pytest.raises(NotImplementedError):
-        t_dense_image_warp_s2d(torch.zeros(1, 2, 2, 48, dtype=torch.uint8),
-                               torch.zeros(1, 2, 2, 32))
+def test_warp_u8_table_matches_jax(rng):
+    """The u8 table (the u8-state tier): bf16 out, within 0.02 of the
+    reference (both combine raw 0..255 values in bf16, an ulp of 1 above
+    128, then one f32 affine /255 - 0.5; XLA:CPU may fuse the bf16
+    combine and round in f32)."""
+    _, _, _, flow_s = _case(rng, 2, 4, 6, 0.5)
+    img_u8 = rng.integers(0, 256, (2, 4, 6, 48)).astype(np.uint8)
+    ref = np.asarray(dense_image_warp_s2d(jnp.asarray(img_u8),
+                                          jnp.asarray(flow_s)), np.float32)
+    got = t_dense_image_warp_s2d(torch.from_numpy(img_u8),
+                                 torch.from_numpy(flow_s))
+    assert got.dtype == torch.bfloat16 and got.shape == img_u8.shape
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=0.02, rtol=0)
