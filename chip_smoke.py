@@ -9,31 +9,45 @@ prints each kernel's registers and spills (``ptxas -v``), holds K1 (C =
 versions on the card, then drives every serving path through
 ``Engine.process`` with seeded random weights at 270x480 -> 1080x1920:
 the quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16,
-68 K1 + 1 K2 launches a frame), the PS2 tiers (flow autoencoder,
+68 K1 + 1 K2 launches a step), the PS2 tiers (flow autoencoder,
 272x480 padding, brightness; generator 64x24: 48 K1 + 1 K2, generator
 48x12: 24 K1 + 1 K2) and the serving options on the PS2-fast
 architecture (u8 state, moving average global and windowed,
-output_flow: 0 K1, remove_flow and pixel mode: no K2).  For each path
-it counts the launches from zero, checks that a step makes no
-synchronising call and that the output is not clipped flat, and holds
-frames against the same engine run on the CPU (plain versions).  It
-times the frame, the step and each kernel with CUDA events, and splits
-the PS2 steps' device time by stage and kernel (``torch.profiler``).
-Then it drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
+output_flow: 0 K1, remove_flow and pixel mode: no K2).  On the card a
+frame is one replayed CUDA graph (``runtime/engine.py``), so for each
+path it sets the launch counts to 0, builds the engine (warm-up steps
+and the capture) and serves frames: the counts hold the warm-up and
+captured steps' launches and nothing from the replays, and the graph's
+recorded launches are checked per step.  It checks that the output is
+not clipped flat, that a replayed step makes no synchronising call,
+that replays equal eager steps bit for bit across a ``reset()``, and
+holds frames against the same engine run on the CPU (plain versions).
+It times the frame, the step eager against replayed, and each kernel
+with CUDA events.  On the quality tier it drives the runtime:
+``process_async`` and ``process_clip`` against ``process``, a
+``VideoStream`` on the card against the CPU, ``NativeEngine`` on a
+package written by ``save_package``, then splits ``process`` into its
+parts and times ``process_async`` and ``Engine.benchmark``.  Then it
+drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
 and prints K1, P2, P1 and cuDNN side by side at the res-block conv's
 shape, and P2's fused pair (a whole res block in one launch) beside
-K1's two launches.  K1's and the probes' lines and kernel entries carry
-the share of the bf16 peak and the fraction of the bound's rate.  Fails
-if P2 spills registers.
+K1's two launches.  Last come the phases under ``torch.profiler``
+(a profiler session can leave the host launching more slowly, so every
+host-clock timing comes before them; the quality step is timed once
+more after them, labelled): each path's replays counted by kernel, the
+PS2 steps' device time split by stage and kernel.  K1's and the
+probes' lines and kernel entries carry the
+share of the bf16 peak and the fraction of the bound's rate.  Fails if
+P2 spills registers.
 
 Prints one line per phase, then the card's name and power limit, a JSON
 line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
 line, on any failure -- including when there is no CUDA device.
-``--profile DIR`` also writes a torch.profiler summary of a few quality
-tier steps there.
+``--profile DIR`` also writes a torch.profiler summary of each tier's
+replayed frames there.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ FRAMES = 8  # driven through Engine.process, launches counted
 REF_FRAMES = 3  # of those, held against the CPU run
 TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
 VARIANT_FRAMES = 3  # each serving option: driven, counted, held vs CPU
+REPLAY_FRAMES = 6  # each path: replays held against eager steps
 
 
 def log(msg: str) -> None:
@@ -269,35 +284,116 @@ def all_kernels():
     return resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot
 
 
+def replay_kernels(torch, engine, dev_frame, n=3, trace_path=None):
+    """The device events of ``n`` replayed steps under ``torch.profiler``
+    (the CUDA graph's kernels, traced one by one; the trace is written
+    to ``trace_path`` if given) and K1's and K2's kernels per replay."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for _ in range(2):
+        engine.step(dev_frame)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.step(dev_frame)
+        torch.cuda.synchronize()
+    if trace_path:
+        events = device_events(prof, trace_path)
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            events = device_events(prof, os.path.join(d, "trace.json"))
+    groups = [kernel_group(e["name"]) for e in events]
+    per = (groups.count("K1 resblock_conv3x3") / n,
+           groups.count("K2 d2s_display_u8") / n)
+    return prof, events, per
+
+
+def check_replay(torch, name, engine, frames, device, n=REPLAY_FRAMES):
+    """``n`` replayed frames, with a ``reset()`` after half of them,
+    against eager ``run_step`` + display on a copy of the state: frames
+    and states bit for bit."""
+    from joshupscale_torch.runtime.engine import run_step
+
+    model = engine.model
+    engine.reset()
+    state = model.init_state(device=device)
+    for i in range(n):
+        if i == n // 2:
+            engine.reset()
+            state = model.init_state(device=device)
+        got = engine.process(frames[i % len(frames)])
+        with torch.inference_mode():
+            x = torch.from_numpy(frames[i % len(frames)][None]).to(device)
+            ref = engine.display(run_step(model, engine.params, x, state))
+        ref = ref.cpu().numpy()[0]
+        same = [torch.equal(a, b) for a, b in zip(
+            [engine.state["pre_gen"]] + engine.state["last_frames"],
+            [state["pre_gen"]] + state["last_frames"])] if state else []
+        if not np.array_equal(got, ref) or not all(same):
+            raise AssertionError(
+                f"{name}: replayed frame {i} differs from the eager step "
+                f"(u8 max diff {np.abs(got.astype(int) - ref).max()}, "
+                f"state tensors equal: {same})")
+    log(f"{name}: {n} replayed frames (reset after {n // 2}) equal eager "
+        f"run_step + display on a copy of the state bit for bit, frames "
+        f"and states")
+
+
+def check_graph_kernels(torch, name, engine, frames, device, k1_per_frame,
+                        k2_per_frame):
+    """A profile of replays shows the frame graph running the kernels
+    it recorded at capture."""
+    dev_frame = torch.from_numpy(frames[0][None]).to(device)
+    _, _, per = replay_kernels(torch, engine, dev_frame)
+    log(f"{name}: profiled replays run {per[0]:g} K1 and {per[1]:g} K2 "
+        f"kernels each")
+    if per != (k1_per_frame, k2_per_frame):
+        raise AssertionError(f"{name}: a replay ran {per} K1/K2 kernels")
+
+
 def drive_path(torch, name, config, seed, device, k1_per_frame,
                k2_per_frame, n_frames=FRAMES, ref_frames=REF_FRAMES):
-    """One serving path through ``Engine.process`` at full frame: the
-    launches counted from zero over ``n_frames`` frames, the output
-    checked, a step checked for synchronising calls, and the first
-    ``ref_frames`` frames held against the same engine on the CPU."""
+    """One serving path at full frame: the launch counts set to 0, the
+    engine built (warm-up steps and the capture of the frame graph) and
+    ``n_frames`` frames through ``Engine.process``; the counts read and
+    the graph's recorded launches checked; the output checked; a step
+    checked for synchronising calls; the first ``ref_frames`` frames
+    held against the same engine on the CPU; replays held against eager
+    steps."""
     from joshupscale_torch.models.registry import create_models
-    from joshupscale_torch.runtime.engine import Engine
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
 
     t0 = time.perf_counter()
     built = create_models(config, seed=seed)["inference"]
     params = seeded_params(torch, built, seed)
-    engine = Engine(built.obj, params, device=device)
     frames = frames_for(n_frames, seed)
 
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
+    engine = Engine(built.obj, params, device=device)
     outs = [engine.process(f) for f in frames]
     torch.cuda.synchronize()
     k1, k2, p1, p2 = (k.launches for k in kernels)
     t = len(frames)
-    log(f"{name}: {t} frames through Engine.process, K1 launches={k1} "
-        f"({k1 / t:g}/frame), K2 launches={k2} ({k2 / t:g}/frame), P1/P2 "
-        f"launches={p1}/{p2}")
-    if k1 != k1_per_frame * t or k2 != k2_per_frame * t or p1 or p2:
-        raise AssertionError(f"{name}: expected {k1_per_frame}/frame K1, "
-                             f"{k2_per_frame}/frame K2 and no P1/P2 "
-                             f"launches, got {k1}, {k2}, {p1}, {p2}")
+    steps = WARMUP_STEPS + 1
+    log(f"{name}: engine built ({WARMUP_STEPS} warm-up steps, 1 captured) "
+        f"and {t} frames through Engine.process (graph replays): K1 "
+        f"launches={k1} ({k1 / steps:g}/step), K2 launches={k2} "
+        f"({k2 / steps:g}/step), P1/P2 launches={p1}/{p2}; in the graph: "
+        f"{engine.graph_launches}")
+    want = {"resblock_conv3x3": k1_per_frame, "d2s_display_u8": k2_per_frame,
+            "probe_dot": 0, "probe_patch_dot": 0}
+    if (k1 != k1_per_frame * steps or k2 != k2_per_frame * steps or p1 or p2
+            or engine.graph_launches != want):
+        raise AssertionError(f"{name}: expected {k1_per_frame} K1 and "
+                             f"{k2_per_frame} K2 a step, none while "
+                             f"replaying and no P1/P2; got {k1}, {k2}, {p1}, "
+                             f"{p2}, graph {engine.graph_launches}")
+    dev_frame = torch.from_numpy(frames[0][None]).to(device)
     for o in outs:
         if o.shape != (4 * H, 4 * W, 3) or o.dtype != np.uint8:
             raise AssertionError(f"{name}: bad output {o.shape} {o.dtype}")
@@ -310,7 +406,6 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
 
     # A step only enqueues work: any host<->device copy or other
     # synchronising call inside it raises here.
-    dev_frame = torch.from_numpy(frames[0][None]).to(device)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -318,34 +413,37 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"{name}: a step and its display make no synchronising call "
-        f"(torch.cuda.set_sync_debug_mode('error'))")
+    log(f"{name}: a replayed step and a display make no synchronising "
+        f"call (torch.cuda.set_sync_debug_mode('error'))")
 
     # The same engine on the CPU (plain versions), same params and frames.
     cpu = Engine(built.obj, params, device="cpu")
     for i in range(ref_frames):
-        ref = cpu.process(frames[i]).astype(np.int32)
-        diff = np.abs(outs[i].astype(np.int32) - ref)
-        mean_d, share = float(diff.mean()), float((diff > 2).mean())
-        log(f"{name} vs CPU plain run, frame {i}: u8 max diff "
-            f"{int(diff.max())}, mean {mean_d:.4f}, share of values off by "
-            f"more than 2: {share:.5f}")
-        # bf16 on both sides, rounded at other places (cuDNN/cuBLAS vs
-        # oneDNN/MKL for the plain convs and products, the kernel's sum
-        # order): a few u8 steps where a flip propagates, rarely more.
-        if mean_d > 0.5 or share > 0.01:
-            raise AssertionError(f"{name}: card and CPU runs disagree "
-                                 f"beyond bound")
+        card_vs_cpu(name, f"frame {i}", outs[i], cpu.process(frames[i]))
+    check_replay(torch, name, engine, frames, device)
     log(f"{name}: phase took {time.perf_counter() - t0:.1f} s")
-    return engine, frames, k1, k2
+    return engine, frames, k1, k2, built
+
+
+def card_vs_cpu(name, what, got, ref):
+    """The card's u8 frame against the CPU's: bf16 on both sides,
+    rounded at other places (cuDNN/cuBLAS vs oneDNN/MKL for the plain
+    convs and products, the kernel's sum order): a few u8 steps where a
+    flip propagates, rarely more.  Fails beyond mean 0.5 or 1% of the
+    values off by more than 2."""
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    mean_d, share = float(diff.mean()), float((diff > 2).mean())
+    log(f"{name} vs CPU plain run, {what}: u8 max diff {int(diff.max())}, "
+        f"mean {mean_d:.4f}, share of values off by more than 2: "
+        f"{share:.5f}")
+    if mean_d > 0.5 or share > 0.01:
+        raise AssertionError(f"{name}: card and CPU runs disagree beyond "
+                             f"bound")
 
 
 def time_frames(torch, name, engine, frames, device, n=TIMED_FRAMES):
     """Frame latency as a host sees it (blocking ``process``, copies
-    included; the first 3 dropped) and the step alone (CUDA events, host
-    launch gaps included)."""
-    from joshupscale_torch.tools.timing import cuda_time_ms
-
+    included; the first 3 dropped), and the step (``time_steps``)."""
     lat = []
     for i in range(n):
         t0 = time.perf_counter()
@@ -356,12 +454,44 @@ def time_frames(torch, name, engine, frames, device, n=TIMED_FRAMES):
     log(f"{name} Engine.process: median {np.median(lat):.3f} ms/frame, p80 "
         f"{p80:.3f} ms (n={lat.size}, blocking, host<->device copies "
         f"included)")
+    return {"frame_ms": float(np.median(lat)), "frame_p80_ms": p80,
+            **time_steps(torch, name, engine, frames, device)}
+
+
+def time_steps(torch, name, engine, frames, device):
+    """The step with its display (what the frame graph holds) eager
+    against replayed, in turns: eager, replayed, replayed, eager, with
+    CUDA events and the host's launch gaps included; then each on the
+    device alone (a spin kernel lets the host enqueue ahead)."""
+    from joshupscale_torch.runtime.engine import clone_state, run_step
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
-    step_ms = cuda_time_ms(lambda: engine.step(dev_frame), reps=5,
-                           device_only=False)
-    log(f"{name} step alone (no display, no copies, host launch gaps "
-        f"included): median {step_ms:.3f} ms/frame")
-    return float(np.median(lat)), step_ms
+    scratch = clone_state(engine.state)
+
+    def eager():
+        with torch.inference_mode():
+            engine.display(run_step(engine.model, engine.params, dev_frame,
+                                    scratch))
+
+    def replayed():
+        engine.step(dev_frame)
+
+    fns = {"eager": eager, "replayed": replayed}
+    host = {"eager": [], "replayed": []}
+    for kind in ("eager", "replayed", "replayed", "eager"):
+        host[kind].append(cuda_time_ms(fns[kind], reps=5, device_only=False))
+    dev = {kind: cuda_time_ms(fn, reps=5) for kind, fn in fns.items()}
+    log(f"{name} step + display (no copies), eager vs replayed graph in "
+        f"turns, CUDA events with host launch gaps: eager "
+        f"{host['eager'][0]:.3f} / {host['eager'][1]:.3f}, replayed "
+        f"{host['replayed'][0]:.3f} / {host['replayed'][1]:.3f} ms/frame; "
+        f"device only: eager {dev['eager']:.3f}, replayed "
+        f"{dev['replayed']:.3f} ms/frame")
+    return {"step_ms": float(np.median(host["replayed"])),
+            "eager_ms": host["eager"], "replayed_ms": host["replayed"],
+            "eager_device_ms": dev["eager"],
+            "replayed_device_ms": dev["replayed"]}
 
 
 def time_k1(torch, device, c):
@@ -411,7 +541,8 @@ def phase_times(torch, engine, frames, device):
     from joshupscale_torch.tools.timing import cuda_time_ms
 
     torch.backends.cudnn.allow_tf32 = False
-    frame_ms, step_ms = time_frames(torch, "quality", engine, frames, device)
+    tf = time_frames(torch, "quality", engine, frames, device)
+    step_ms = tf["step_ms"]
     k1, lib_ms = time_k1(torch, device, 64)
 
     rng = np.random.default_rng(8)
@@ -425,13 +556,139 @@ def phase_times(torch, engine, frames, device):
 
     k1_ms = (k1["conv_1"][0] + k1["conv_2"][0]) / 2
     log(f"where the quality step goes: K1 {K1_PER_FRAME} x {k1_ms:.4f} = "
-        f"{K1_PER_FRAME * k1_ms:.3f} ms of {step_ms:.3f} ms; the rest "
-        f"(first convs, heads, warp, tail, state copies, launch gaps) "
+        f"{K1_PER_FRAME * k1_ms:.3f} ms of the replayed {step_ms:.3f} ms; "
+        f"the rest (first convs, heads, warp, tail, state copies, K2) "
         f"{step_ms - K1_PER_FRAME * k1_ms:.3f} ms")
-    return {
-        "k1": k1, "lib_ms": lib_ms, "k2": (k2_ms, k2_plain, k2_bound),
-        "frame_ms": frame_ms, "step_ms": step_ms,
-    }
+    return {"k1": k1, "lib_ms": lib_ms, "k2": (k2_ms, k2_plain, k2_bound),
+            **tf}
+
+
+def phase_runtime(torch, config, engine, built, frames, device, k2_ms):
+    """The runtime around the engine on the quality tier: process_async
+    and process_clip against streamed process (bit for bit), a
+    VideoStream on the card against the same stream on the CPU,
+    NativeEngine.process_bytes on a package written by save_package
+    against Engine.process (bit for bit); then process split into its
+    parts, process_async throughput at max_inflight 1, 2 and 3, and
+    Engine.benchmark by both methods."""
+    import tempfile
+
+    from joshupscale_torch.export.package import save_package
+    from joshupscale_torch.runtime import Engine, VideoStream
+    from joshupscale_torch.runtime.native_glue import NativeEngine
+
+    t0 = time.perf_counter()
+    clip = frames[:6]
+    engine.reset()
+    ref = np.stack([engine.process(f) for f in clip])
+    engine.reset()
+    outs = [engine.process_async(f) for f in clip]
+    if not np.array_equal(np.stack([o.cpu().numpy()[0] for o in outs]), ref):
+        raise AssertionError("process_async frames differ from process's")
+    engine.reset()
+    if not np.array_equal(engine.process_clip(clip), ref):
+        raise AssertionError("process_clip differs from streamed process")
+    log(f"runtime: process_async and process_clip equal streamed process "
+        f"bit for bit ({len(clip)} frames each)")
+
+    # One seek pattern on the card and on the CPU: warm-up lead-in,
+    # a cache hit, a forward run.
+    back, requests = 2, [0, 1, 2, 1, 5]
+    cpu = Engine(engine.model, built.params, device="cpu")
+    engine.reset()
+    sides = [(e, e.frames_processed, VideoStream(
+        e, lambda i: frames[i], num_frames=len(frames), max_backtrack=back))
+        for e in (engine, cpu)]
+    for n in requests:
+        got, want = (stream.get_frame(n) for _, _, stream in sides)
+        card_vs_cpu("VideoStream", f"frame {n}", got, want)
+    calls = [e.frames_processed - before for e, before, _ in sides]
+    log(f"runtime: VideoStream (max_backtrack {back}, requests {requests}) "
+        f"on the card within bound of the CPU's; engine calls card/CPU "
+        f"{calls[0]}/{calls[1]}")
+    if calls[0] != calls[1] or calls[0] != 8:
+        raise AssertionError(f"VideoStream made {calls} engine calls, not 8")
+    del cpu, sides
+
+    with tempfile.TemporaryDirectory() as d:
+        save_package(d, config, built)
+        native = NativeEngine(d, 0)
+        engine.reset()
+        for f in frames[:3]:
+            got = native.process_bytes(f.tobytes())
+            if got != engine.process(f).tobytes():
+                raise AssertionError("NativeEngine.process_bytes differs from "
+                                     "Engine.process")
+        del native
+    log("runtime: NativeEngine.process_bytes on a package written by "
+        "save_package equals Engine.process bit for bit (3 frames)")
+
+    # process = input copy + replay (step + display) + u8 copy + the rest,
+    # host clock around each part with a sync after it; medians of 30.
+    engine.reset()
+    parts = {"input": [], "replay": [], "u8": [], "process": [],
+             "input_host": []}
+    for i in range(33):
+        f = frames[i % len(frames)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = engine._as_input(f)
+        t_host = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = engine._serve(x)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        out.cpu()
+        t4 = time.perf_counter()
+        engine.process(f)
+        t5 = time.perf_counter()
+        if i >= 3:
+            for k, dt in zip(parts, (t2 - t1, t3 - t2, t4 - t3, t5 - t4,
+                                     t_host - t1)):
+                parts[k].append(dt * 1e3)
+    split = {k: float(np.median(v)) for k, v in parts.items()}
+    step = split["replay"] - k2_ms
+    split["step"] = step
+    split["display"] = k2_ms
+    split["rest"] = split["process"] - split["input"] - split["replay"] - \
+        split["u8"]
+    log(f"runtime: Engine.process {split['process']:.3f} ms (median of 30, "
+        f"host clock) exceeds the replayed step ({step:.3f} ms: replay "
+        f"with a sync, K2 taken out) by {split['process'] - step:.3f} ms = "
+        f"input copy (pinned staging + H2D; {split['input_host']:.3f} of it "
+        f"before the sync) {split['input']:.3f} + display "
+        f"(K2, in the graph) {k2_ms:.3f} + u8 copy to the host "
+        f"{split['u8']:.3f} + the rest {split['rest']:.3f} ms")
+
+    fps = {}
+    for k in (1, 2, 3):
+        e = Engine(engine.model, built.params, device=device, max_inflight=k)
+        for f in frames[:3]:
+            e.process_async(f)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(50):
+            e.process_async(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        fps[k] = 50 / (time.perf_counter() - t1)
+        del e
+    log(f"runtime: process_async throughput over 50 frames (outputs left on "
+        f"the device): " + ", ".join(
+            f"max_inflight {k}: {v:.1f} frames/s ({1e3 / v:.3f} ms/frame)"
+            for k, v in fps.items()))
+
+    engine.reset()
+    scan = engine.benchmark()
+    per = engine.benchmark(method="per_dispatch")
+    log(f"runtime: Engine.benchmark scan_diff (96 vs 16 frames of replays, "
+        f"CUDA events) {scan['frame_ms']:.3f} ms/frame, {scan['fps']:.1f} "
+        f"fps; per_dispatch (copy in, replay, wait; 96 after 16) p50 "
+        f"{per['p50'] * 1e3:.3f} ms, p99 {per['p99'] * 1e3:.3f} ms, mean "
+        f"{per['mean'] * 1e3:.3f} ms")
+    log(f"runtime: phase took {time.perf_counter() - t0:.1f} s")
+    return {"split": split, "async_fps": fps, "scan_diff": scan,
+            "per_dispatch": per}
 
 
 def kernel_group(name: str) -> str:
@@ -467,88 +724,125 @@ def device_events(prof, path):
     return events
 
 
-def phase_split(torch, name, engine, frames, device):
-    """Where a step's time goes: the flow stage (preprocess, brightness,
-    pad, flow net) and the generator stage (warp, generator, tail) each
-    timed alone (CUDA events, device only and with the host's launch
-    gaps) and profiled over 3 calls, kernels grouped by
-    ``kernel_group``."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    from joshupscale_torch.tools.timing import cuda_time_ms
-
+def stages(torch, engine, frames, device):
+    """The step's two stages alone, on the engine's state (not
+    committed): the flow stage (preprocess, brightness, pad, flow net)
+    and the generator stage (warp, generator, tail)."""
     model, params, state = engine.model, engine.params, engine.state
     x = torch.from_numpy(frames[0][None]).to(device)
     with torch.inference_mode():
         inter, _ = model.apply_flow_stage(
             params, x, {"last_frames": state["last_frames"]})
-        stages = {
-            "flow stage": lambda: model.apply_flow_stage(
-                params, x, {"last_frames": state["last_frames"]}),
-            "generator stage": lambda: model.apply_gen_stage(
-                params, inter, {"pre_gen": state["pre_gen"]}),
-        }
-        split = {}
-        for stage, fn in stages.items():
-            ms = cuda_time_ms(fn, reps=5)
-            host_ms = cuda_time_ms(fn, reps=5, device_only=False)
-            torch.cuda.synchronize()
-            with tprofile(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-            groups = {}
-            with tempfile.TemporaryDirectory() as d:
-                events = device_events(prof, os.path.join(d, "trace.json"))
-            for e in events:
-                key = kernel_group(e["name"])
-                groups[key] = groups.get(key, 0.0) + e["dur"] / 3e3
-            split[stage] = {"ms": ms, "host_ms": host_ms, "groups": groups,
-                            "ops": len(events) / 3}
-            log(f"{name} {stage}: {ms:.3f} ms/frame device only, "
-                f"{host_ms:.3f} ms with host launch gaps (CUDA events), "
-                f"{len(events) / 3:.0f} device ops; profiled device time "
-                f"by part: " + "; ".join(
-                    f"{k} {v:.3f}" for k, v in sorted(
-                        groups.items(), key=lambda kv: -kv[1])))
+
+    def flow():
+        with torch.inference_mode():
+            model.apply_flow_stage(params, x,
+                                   {"last_frames": state["last_frames"]})
+
+    def gen():
+        with torch.inference_mode():
+            model.apply_gen_stage(params, inter, {"pre_gen": state["pre_gen"]})
+
+    return {"flow stage": flow, "generator stage": gen}
+
+
+def time_stages(torch, name, engine, frames, device):
+    """Each stage timed alone: CUDA events, device only and with the
+    host's launch gaps."""
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
+    split = {}
+    for stage, fn in stages(torch, engine, frames, device).items():
+        split[stage] = {"ms": cuda_time_ms(fn, reps=5),
+                        "host_ms": cuda_time_ms(fn, reps=5,
+                                                device_only=False)}
+        log(f"{name} {stage}: {split[stage]['ms']:.3f} ms/frame device "
+            f"only, {split[stage]['host_ms']:.3f} ms with host launch gaps "
+            f"(CUDA events)")
     return split
 
 
-def phase_ps2(torch, seed, device, profile_dir=None):
-    """The two PS2 tiers at full width: driven, checked, timed, split
-    (and profiled into ``profile_dir``); K1 at C = 48 timed on the
-    PS2-fast path."""
+def profile_stages(torch, name, engine, frames, device, split):
+    """Each stage profiled over 3 calls, kernels grouped by
+    ``kernel_group``, into ``split``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for stage, fn in stages(torch, engine, frames, device).items():
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        groups = {}
+        with tempfile.TemporaryDirectory() as d:
+            events = device_events(prof, os.path.join(d, "trace.json"))
+        for e in events:
+            key = kernel_group(e["name"])
+            groups[key] = groups.get(key, 0.0) + e["dur"] / 3e3
+        split[stage].update(groups=groups, ops=len(events) / 3)
+        log(f"{name} {stage}: {len(events) / 3:.0f} device ops; profiled "
+            f"device time by part: " + "; ".join(
+                f"{k} {v:.3f}" for k, v in sorted(
+                    groups.items(), key=lambda kv: -kv[1])))
+
+
+def phase_ps2(torch, seed, device, paths):
+    """The two PS2 tiers at full width: driven, checked, timed and their
+    stages timed (each engine kept in ``paths`` for the profiler
+    phases); K1 at C = 48 timed on the PS2-fast path."""
     out = {}
     for tier in ("ps2_style", "ps2_fast"):
         k1_per_frame = 2 * PS2_LADDERS[tier][2]
-        engine, frames, k1, k2 = drive_path(
+        engine, frames, k1, k2, _ = drive_path(
             torch, tier, ps2_config(tier), seed, device, k1_per_frame, 1)
-        frame_ms, step_ms = time_frames(torch, tier, engine, frames, device,
-                                        n=23)
-        split = phase_split(torch, tier, engine, frames, device)
-        if profile_dir:
-            profile(torch, tier, engine, frames, device, profile_dir)
-        out[tier] = {"k1": k1, "k2": k2, "frame_ms": frame_ms,
-                     "step_ms": step_ms, "split": split}
-        del engine
+        tf = time_frames(torch, tier, engine, frames, device, n=23)
+        split = time_stages(torch, tier, engine, frames, device)
+        out[tier] = {"k1": k1, "k2": k2, "split": split, **tf}
+        paths[tier] = (engine, frames, k1_per_frame, 1)
     out["k1_c48"], out["lib_ms_c48"] = time_k1(torch, device, 48)
     return out
 
 
-def phase_variants(torch, seed, device):
+def phase_variants(torch, seed, device, paths):
     """Every serving option on the PS2-fast architecture at full frame:
-    launches, output, sync and card-vs-CPU checks as for the tiers."""
+    launches, output, sync, replay and card-vs-CPU checks as for the
+    tiers (each engine kept in ``paths``)."""
     launches = {}
     for name, (options, k1_per_frame, k2_per_frame) in VARIANTS.items():
-        _, _, k1, k2 = drive_path(
+        engine, frames, k1, k2, _ = drive_path(
             torch, f"variant {name}", ps2_config("ps2_fast", **options),
             seed, device, k1_per_frame, k2_per_frame,
             n_frames=VARIANT_FRAMES, ref_frames=VARIANT_FRAMES)
         launches[name] = {"K1": k1, "K2": k2}
+        paths[f"variant {name}"] = (engine, frames, k1_per_frame,
+                                    k2_per_frame)
     return launches
+
+
+def phase_profiled(torch, paths, ps2, device, profile_dir):
+    """The phases under ``torch.profiler``, after every host-clock
+    timing (a profiler session can leave the host launching more
+    slowly): each path's replays counted by kernel; the PS2 stages split
+    by kernel; with ``profile_dir``, each tier's replays profiled into
+    it; then the quality step timed again, eager against replayed, to
+    show the profiler's after-effect."""
+    for name, (engine, frames, k1_per_frame, k2_per_frame) in paths.items():
+        check_graph_kernels(torch, name, engine, frames, device,
+                            k1_per_frame, k2_per_frame)
+    for tier in ("ps2_style", "ps2_fast"):
+        engine, frames = paths[tier][:2]
+        profile_stages(torch, tier, engine, frames, device,
+                       ps2[tier]["split"])
+    if profile_dir:
+        for tier in ("quality", "ps2_style", "ps2_fast"):
+            engine, frames = paths[tier][:2]
+            profile(torch, tier, engine, frames, device, profile_dir)
+    engine, frames = paths["quality"][:2]
+    return time_steps(torch, "quality (after the profiler sessions)",
+                      engine, frames, device)
 
 
 def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
@@ -602,27 +896,19 @@ def probe_entry(name, source, replaces, variants, res, launches):
 
 
 def profile(torch, name, engine, frames, device, out_dir):
-    """A serving path's steps and displays under ``torch.profiler``:
-    device ops and busy time a frame, the idle share of the span, the
-    device time by part; the table and trace go to ``out_dir``."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+    """A serving path's replayed frame graphs (step and display) under
+    ``torch.profiler``: device ops and busy time a frame, the idle share
+    of the span, the device time by part; the table and trace go to
+    ``out_dir``."""
     os.makedirs(out_dir, exist_ok=True)
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
-    for _ in range(2):
-        engine.step(dev_frame)
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            engine.display(engine.step(dev_frame))
-        torch.cuda.synchronize()
+    prof, events, _ = replay_kernels(
+        torch, engine, dev_frame,
+        trace_path=os.path.join(out_dir, f"trace_step_{name}.json"))
     table = prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=40)
     with open(os.path.join(out_dir, f"profile_step_{name}.txt"), "w") as f:
         f.write(table)
-    events = device_events(prof, os.path.join(out_dir,
-                                              f"trace_step_{name}.json"))
     events.sort(key=lambda e: e["ts"])
     busy, cur_start, cur_end = 0.0, None, None
     for e in events:  # union of device intervals
@@ -639,7 +925,7 @@ def profile(torch, name, engine, frames, device, out_dir):
     for e in events:
         key = kernel_group(e["name"])
         groups[key] = groups.get(key, 0.0) + e["dur"]
-    log(f"{name} profile of 3 steps + displays: {len(events) / 3:.0f} device "
+    log(f"{name} profile of 3 replayed frames: {len(events) / 3:.0f} device "
         f"ops/frame, device busy {busy / 3e3:.3f} ms/frame of a "
         f"{span / 3e3:.3f} ms/frame span (idle share "
         f"{1 - busy / span:.3f}, profiler on)")
@@ -686,18 +972,25 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     k1_err = phase_k1(torch, rng, device)
     k2_err = phase_k2(torch, rng, device)
-    engine, frames, k1_launches, k2_launches = drive_path(
+    # Every host-clock timing runs before the first torch.profiler
+    # session of the process; the engines stay alive until the profiler
+    # phases.
+    paths = {}
+    engine, frames, k1_launches, k2_launches, built = drive_path(
         torch, "quality", quality_config(), args.seed, device, K1_PER_FRAME,
         1)
+    paths["quality"] = (engine, frames, K1_PER_FRAME, 1)
     times = phase_times(torch, engine, frames, device)
-    if args.profile:
-        profile(torch, "quality", engine, frames, device, args.profile)
-    del engine
-    ps2 = phase_ps2(torch, args.seed, device, args.profile)
-    variants = phase_variants(torch, args.seed, device)
+    runtime = phase_runtime(torch, quality_config(), engine, built, frames,
+                            device, times["k2"][0])
+    del engine, built
+    ps2 = phase_ps2(torch, args.seed, device, paths)
+    variants = phase_variants(torch, args.seed, device, paths)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
+    after = phase_profiled(torch, paths, ps2, device, args.profile)
+    paths.clear()
 
     (c1, p1, b1, by1), (c2, p2, b2, by2) = (times["k1"]["conv_1"],
                                             times["k1"]["conv_2"])
@@ -746,11 +1039,27 @@ def main() -> int:
                     "tools/pallas_conv_probe.py:120", ["patch", "pair"],
                     probes, p2_launches),
     ]
-    log(f"quality: frame {times['frame_ms']:.3f} ms (Engine.process "
-        f"median), step {times['step_ms']:.3f} ms on {card}")
-    for tier in ("ps2_style", "ps2_fast"):
-        log(f"{tier}: frame {ps2[tier]['frame_ms']:.3f} ms, step "
-            f"{ps2[tier]['step_ms']:.3f} ms on {card}")
+    for tier, t in (("quality", times), ("ps2_style", ps2["ps2_style"]),
+                    ("ps2_fast", ps2["ps2_fast"])):
+        log(f"{tier}: Engine.process median {t['frame_ms']:.3f} ms, p80 "
+            f"{t['frame_p80_ms']:.3f} ms; step + display eager "
+            f"{t['eager_ms'][0]:.3f} / {t['eager_ms'][1]:.3f} ms, replayed "
+            f"{t['replayed_ms'][0]:.3f} / {t['replayed_ms'][1]:.3f} ms, "
+            f"device only {t['eager_device_ms']:.3f} / "
+            f"{t['replayed_device_ms']:.3f} ms on {card}")
+    log(f"quality after the profiler sessions: step + display eager "
+        f"{after['eager_ms'][0]:.3f} / {after['eager_ms'][1]:.3f} ms, "
+        f"replayed {after['replayed_ms'][0]:.3f} / "
+        f"{after['replayed_ms'][1]:.3f} ms on {card}")
+    split, fps = runtime["split"], runtime["async_fps"]
+    log(f"quality runtime: process {split['process']:.3f} ms = step "
+        f"{split['step']:.3f} + input copy {split['input']:.3f} + display "
+        f"{split['display']:.3f} + u8 copy {split['u8']:.3f} + rest "
+        f"{split['rest']:.3f}; process_async "
+        + ", ".join(f"{v:.1f}" for v in fps.values())
+        + f" frames/s at max_inflight 1, 2, 3; benchmark scan_diff "
+        f"{runtime['scan_diff']['frame_ms']:.3f} ms/frame, per_dispatch "
+        f"p50 {runtime['per_dispatch']['p50'] * 1e3:.3f} ms on {card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
-"""Load a model package written by the reference's ``save_package``.
+"""Model packages: the deployable artifact.
 
 A package is a directory holding ``model.yaml`` (the model config and
 the name of the inference entry) and ``params.npz`` (flat dotted-path
-params).  Port of ``load_package`` from
-``joshupscale_tpu/export/package.py``.
+params in the reference's layouts).  Port of ``save_package`` and
+``load_package`` from ``joshupscale_tpu/export/package.py``: a package
+either side writes loads on the other.
 """
 
 from __future__ import annotations
@@ -11,14 +12,45 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Tuple
 
-from joshupscale_torch.export.weights import load_params_npz
+import numpy as np
+
+from joshupscale_torch.export.weights import load_params_npz, to_flat_numpy
 from joshupscale_torch.models.inference import InferenceModel
-from joshupscale_torch.models.registry import create_models, load_into
+from joshupscale_torch.models.registry import (
+    BuiltModel,
+    create_models,
+    load_into,
+)
+
+
+def save_package(path: str, model_config: Dict[str, Any], built: BuiltModel,
+                 inference_name: str = "inference",
+                 export_stablehlo: bool = False, batch_size: int = 1) -> None:
+    """Write a package for a built inference model: ``model.yaml``
+    (``model_config`` and ``inference_name``) and ``params.npz``.
+
+    ``export_stablehlo`` asks for the reference's Python-free serving
+    artifact, an XLA program (StableHLO) for its PJRT runtime; it has no
+    counterpart on CUDA and raises ``NotImplementedError``.
+    ``batch_size`` sized only that program.
+    """
+    if export_stablehlo:
+        raise NotImplementedError(
+            "export_stablehlo writes an XLA program (StableHLO and its "
+            "compile options) for the reference's PJRT runtime; it has no "
+            "counterpart on CUDA.  Serve the package with create_runtime.")
+    import yaml  # only the package files need it
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "model.yaml"), "w") as f:
+        yaml.safe_dump({"models": model_config, "inference": inference_name},
+                       f)
+    np.savez(os.path.join(path, "params.npz"), **to_flat_numpy(built.params))
 
 
 def load_package(path: str) -> Tuple[InferenceModel, Dict[str, Any]]:
     """Load a package: returns ``(InferenceModel, params)``."""
-    import yaml  # only the package loader needs it
+    import yaml  # only the package files need it
 
     with open(os.path.join(path, "model.yaml")) as f:
         meta = yaml.safe_load(f)

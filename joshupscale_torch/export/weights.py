@@ -1,10 +1,10 @@
-"""Carry parameters across from the reference's flat ``.npz`` form.
+"""Carry parameters across the reference's flat ``.npz`` form.
 
 The reference flattens its param trees to dotted paths
 (``flow.block_3.conv_1.kernel`` ...; ``flatten_params`` /
 ``save_params_npz`` in ``joshupscale_tpu/export/importer.py``).
 ``from_flat_numpy`` rebuilds the nested dict and converts layouts to the
-port's:
+port's, and ``to_flat_numpy`` is its inverse:
 
 - conv kernels HWIO ``(kh, kw, I, O)`` -> OHWI ``(O, kh, kw, I)``
   (see ``nn/layers.py``);
@@ -12,7 +12,7 @@ port's:
   product ``(I, 4*O)`` the s2d tail multiplies by;
 - everything else (BN stats, biases, fade counters) as float32 tensors.
 
-Numpy only: no JAX is needed to read a reference checkpoint.
+Numpy only: no JAX is needed to read or write a reference checkpoint.
 """
 
 from __future__ import annotations
@@ -52,6 +52,33 @@ def from_flat_numpy(flat: Dict[str, np.ndarray]):
             node = node.setdefault(k, {})
         node[keys[-1]] = _convert(path, arr)
     return tree
+
+
+def _export(path: str, t: torch.Tensor) -> np.ndarray:
+    parts = path.split(".")
+    leaf = parts[-1]
+    layer = parts[-2] if len(parts) > 1 else ""
+    arr = t.detach().to("cpu", torch.float32).numpy()
+    if leaf == "kernel" and layer.startswith("conv_trans") and arr.ndim == 2:
+        # (I, 4*O) with output channel (dy*2 + dx)*O + o -> (2, 2, O, I).
+        in_ch, out4 = arr.shape
+        arr = arr.reshape(in_ch, 2, 2, out4 // 4).transpose(1, 2, 3, 0)
+    elif leaf == "kernel" and arr.ndim == 4:
+        arr = arr.transpose(1, 2, 3, 0)  # OHWI -> HWIO
+    return np.ascontiguousarray(arr)
+
+
+def to_flat_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The port's nested param dict -> the reference's dotted-path numpy
+    dict, in the reference's layouts (the inverse of ``from_flat_numpy``)."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(to_flat_numpy(v, path))
+        else:
+            out[path] = _export(path, v)
+    return out
 
 
 def load_params_npz(path: str, prefix: str = ""):

@@ -7,3 +7,15 @@
 
 Nothing is compiled at import; ``_build`` runs ``nvcc`` at first launch.
 """
+
+from typing import Dict
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count so far, by wrapper name."""
+    from joshupscale_torch.kernels.display import d2s_display_u8
+    from joshupscale_torch.kernels.probes import probe_dot, probe_patch_dot
+    from joshupscale_torch.kernels.resblock import resblock_conv3x3
+
+    return {k.__name__: k.launches for k in (
+        resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot)}

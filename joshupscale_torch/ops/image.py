@@ -31,11 +31,11 @@ def postprocess(x: torch.Tensor) -> torch.Tensor:
     return out.to(torch.uint8)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _luma(dtype: torch.dtype, device) -> torch.Tensor:
     """``BGR_LUMA * 3`` rounded as the reference rounds it in ``dtype``
     (the weights cast first, then the product); a constant kept per
-    device."""
+    device, never evicted: a captured CUDA graph reads it by address."""
     return (torch.tensor(BGR_LUMA, dtype=dtype) * 3.0).to(device)
 
 

@@ -46,7 +46,9 @@ def phase_kernel(s: int, c: int, dtype: torch.dtype = torch.float32,
             device, dtype)
 
 
-_cached_phase_kernel = functools.lru_cache(maxsize=64)(phase_kernel)
+# The device constants below are cached per key and never evicted: a
+# captured CUDA graph (runtime/engine.py) reads them by address.
+_cached_phase_kernel = functools.cache(phase_kernel)
 
 
 def phase_upscale(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
@@ -71,7 +73,7 @@ def _upscale_bilinear_conv(x: torch.Tensor, s: int,
     return depth_to_space(out, s)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _broadcast_weights(s: int, dtype: torch.dtype, device) -> torch.Tensor:
     """(4, 1, 1, s, 1, s, 1) weights of the corners x00, x01, x10, x11
     for each output phase (ry, rx), float32 as the reference computes
@@ -116,7 +118,7 @@ def _tf1_indices(out_size: int, in_size: int):
     return lo, hi, frac
 
 
-@functools.lru_cache(maxsize=64)
+@functools.cache
 def _tf1_tables(out_size: int, in_size: int, dtype: torch.dtype, device):
     lo, hi, frac = _tf1_indices(out_size, in_size)
     return (torch.from_numpy(lo).to(device), torch.from_numpy(hi).to(device),

@@ -38,13 +38,22 @@ def sub_params(flat, prefix, template):
                                      if k.startswith(dot)})
 
 
+def engine_factory(config, seed=0):
+    """A function making fresh (reference engine, port engine on the
+    CPU) pairs with the same params; its keyword arguments go to the
+    port's ``Engine``.  The pairs share their models, so the reference
+    compiles its step once."""
+    built, flat = flat_params(config, seed)
+    j_params = unflatten_into(built.params, flat)
+    t_model = create_models(config, seed=seed)["inference"].obj
+    t_params = from_flat_numpy(flat)
+    return lambda **kw: (JEngine(built.obj, j_params),
+                         Engine(t_model, t_params, device="cpu", **kw))
+
+
 def engines(config, seed=0):
     """(reference engine, port engine on the CPU) with the same params."""
-    built, flat = flat_params(config, seed)
-    j_engine = JEngine(built.obj, unflatten_into(built.params, flat))
-    t_built = create_models(config, seed=seed)["inference"]
-    t_engine = Engine(t_built.obj, from_flat_numpy(flat), device="cpu")
-    return j_engine, t_engine
+    return engine_factory(config, seed)()
 
 
 def u8_frames(rng, t, h, w):

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the engine's
+frame graph against eager steps, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -32,7 +33,7 @@ from joshupscale_torch.kernels.resblock import (
     resblock_conv3x3_plain,
 )
 from joshupscale_torch.models.registry import create_models
-from joshupscale_torch.runtime.engine import Engine
+from joshupscale_torch.runtime.engine import Engine, run_step
 
 pytestmark = pytest.mark.cuda
 
@@ -208,12 +209,8 @@ def test_probe_kernels_refuse_bad_operands(gen, cuda):
         probe_patch_dot(_offset(x, 8), b, b, 64, m=64)  # TMA: 16-byte bases
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
-    """The engine on the card vs on the CPU (plain versions), 4 frames:
-    u8 within 1 step in f32; in bf16 within 2 steps (roundings at other
-    places in the library convs and products)."""
-    config = {
+def _quality_config(compute_dtype):
+    return {
         "flow": {"name": "flow-resnet", "num_filters": 32,
                  "num_res_blocks": 2},
         "generator": {"name": "generator-resnet", "num_filters": 48,
@@ -223,16 +220,32 @@ def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
                       "skip_processing": False, "frame_height": 24,
                       "frame_width": 40, "compute_dtype": compute_dtype},
     }
-    built = create_models(config, seed=1)["inference"]
+
+
+def _graph_launches(k1, k2):
+    return {"resblock_conv3x3": k1, "d2s_display_u8": k2, "probe_dot": 0,
+            "probe_patch_dot": 0}
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
+    """The engine on the card vs on the CPU (plain versions), 4 frames:
+    u8 within 1 step in f32; in bf16 within 2 steps (roundings at other
+    places in the library convs and products).  The card's frames are
+    replays of one graph holding the 4 res blocks' 8 K1 launches and
+    K2, so no wrapper is called while serving."""
+    built = create_models(_quality_config(compute_dtype),
+                          seed=1)["inference"]
     on_card = Engine(built.obj, built.params)
     on_cpu = Engine(built.obj, built.params, device="cpu")
+    assert on_card.graph_launches == _graph_launches(2 * 4, 1)
     frames = gen.integers(0, 256, (4, 24, 40, 3)).astype(np.uint8)
-    before = resblock_conv3x3.launches
+    before = resblock_conv3x3.launches, d2s_display_u8.launches
     for f in frames:
         diff = np.abs(on_card.process(f).astype(np.int32)
                       - on_cpu.process(f).astype(np.int32))
         assert diff.max() <= (1 if compute_dtype == "float32" else 2)
-    assert resblock_conv3x3.launches == before + 4 * 2 * 4
+    assert (resblock_conv3x3.launches, d2s_display_u8.launches) == before
 
 
 def _ps2_config(compute_dtype, **options):
@@ -271,28 +284,87 @@ def test_serving_option_cuda_matches_cpu(gen, cuda, option, compute_dtype):
     """The PS2 configuration (autoencoder, 21x38 padded to 24x40,
     brightness) and each serving option on it, on the card vs on the
     CPU, 4 frames: u8 within 1 step in f32, 2 in bf16, as the quality
-    tier's test; K1 runs 2 a res block except under output_flow, K2
-    once a frame on the deferred s2d paths only."""
+    tier's test.  The frame graph holds K1 2 a res block except under
+    output_flow, and K2 on the deferred s2d paths only."""
     built = create_models(_ps2_config(compute_dtype, **_OPTIONS[option]),
                           seed=3)["inference"]
     on_card = Engine(built.obj, built.params)
     on_cpu = Engine(built.obj, built.params, device="cpu")
     frames = gen.integers(0, 256, (4, 21, 38, 3)).astype(np.uint8)
-    k1, k2 = resblock_conv3x3.launches, d2s_display_u8.launches
+    before = resblock_conv3x3.launches, d2s_display_u8.launches
     for f in frames:
         diff = np.abs(on_card.process(f).astype(np.int32)
                       - on_cpu.process(f).astype(np.int32))
         assert diff.max() <= (1 if compute_dtype == "float32" else 2)
     deferred = option not in ("remove_flow", "pixel_mode")
     assert on_card._deferred == deferred
-    assert resblock_conv3x3.launches == k1 + (
-        0 if option == "output_flow" else 4 * 2 * 2)
-    assert d2s_display_u8.launches == k2 + (4 if deferred else 0)
+    assert on_card.graph_launches == _graph_launches(
+        0 if option == "output_flow" else 2 * 2, int(deferred))
+    assert (resblock_conv3x3.launches, d2s_display_u8.launches) == before
+
+
+_REPLAY_CASES = ([("quality", None, dt) for dt in ("float32", "bfloat16")]
+                 + [("ps2", o, dt) for o, dt in _OPTION_CASES])
+
+
+@pytest.mark.parametrize("arch,option,compute_dtype", _REPLAY_CASES)
+def test_replayed_frames_equal_eager_steps(gen, cuda, arch, option,
+                                           compute_dtype):
+    """The graph's frames equal eager ``run_step`` + display on a copy
+    of the state bit for bit, and so do the states, over 6 frames with a
+    ``reset()`` after the third: the warm-up before the capture left the
+    state at ``init_state``, the shift register follows, and reset
+    reaches the graph's buffers."""
+    config = (_quality_config(compute_dtype) if arch == "quality"
+              else _ps2_config(compute_dtype, **_OPTIONS[option]))
+    built = create_models(config, seed=4)["inference"]
+    engine = Engine(built.obj, built.params)
+    model = engine.model
+    h, w = model.frame_height, model.frame_width
+    frames = gen.integers(0, 256, (6, h, w, 3)).astype(np.uint8)
+    state = model.init_state(device=cuda)
+    for i, f in enumerate(frames):
+        if i == 3:
+            engine.reset()
+            state = model.init_state(device=cuda)
+        got = engine.process(f)
+        with torch.inference_mode():
+            x = torch.from_numpy(f[None]).to(cuda)
+            ref = engine.display(run_step(model, engine.params, x, state))
+        np.testing.assert_array_equal(got, ref.cpu().numpy()[0])
+        if state:
+            for a, b in zip([engine.state["pre_gen"]]
+                            + engine.state["last_frames"],
+                            [state["pre_gen"]] + state["last_frames"]):
+                assert torch.equal(a, b)
+
+
+def test_process_clip_and_async_on_card(gen, cuda):
+    """``process_clip`` copies each frame out of the graph's buffer
+    before the next replay, and ``process_async`` returns each frame's
+    own tensor: both equal streamed ``process`` on the card."""
+    built = create_models(_quality_config("bfloat16"), seed=5)["inference"]
+    frames = gen.integers(0, 256, (5, 24, 40, 3)).astype(np.uint8)
+    streamed = Engine(built.obj, built.params)
+    ref = np.stack([streamed.process(f) for f in frames])
+    engine = Engine(built.obj, built.params, max_inflight=2)
+    np.testing.assert_array_equal(engine.process_clip(frames), ref)
+    engine.reset()
+    np.testing.assert_array_equal(
+        engine.process_clip(frames[:, None], chunk_frames=2)[:, 0], ref)
+    engine.reset()
+    outs = []
+    for f in frames:
+        outs.append(engine.process_async(f))
+        assert len(engine._pending) <= 2
+    np.testing.assert_array_equal(
+        np.stack([o.cpu().numpy()[0] for o in outs]), ref)
 
 
 def test_engine_step_does_not_sync(gen, cuda):
-    """A step enqueues its work and returns: no host<->device copy or
-    other synchronising call inside it (every constant is built when
+    """A step (a copy into the graph's input buffer and a replay) and a
+    display enqueue their work and return: no host<->device copy or
+    other synchronising call inside them (every constant is built when
     the engine is)."""
     config = {
         "flow": {"name": "flow-resnet", "num_filters": 32,
@@ -308,7 +380,7 @@ def test_engine_step_does_not_sync(gen, cuda):
     engine = Engine(built.obj, built.params)
     frame = torch.from_numpy(
         gen.integers(0, 256, (1, 16, 24, 3)).astype(np.uint8)).to(cuda)
-    engine.display(engine.step(frame))  # loads the kernels
+    engine.display(engine.step(frame))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

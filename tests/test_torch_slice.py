@@ -242,12 +242,14 @@ def test_unported_model_types_raise():
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor the JAX package
-    (nor yaml outside the package loader)."""
+    (nor yaml outside the package files)."""
     code = ("import sys, joshupscale_torch, joshupscale_torch.runtime.engine,"
             " joshupscale_torch.export.package, joshupscale_torch.kernels."
             "resblock, joshupscale_torch.kernels.display,"
             " joshupscale_torch.kernels.probes,"
-            " joshupscale_torch.tools.conv_probe\n"
+            " joshupscale_torch.tools.conv_probe,"
+            " joshupscale_torch.runtime.stream, joshupscale_torch.runtime.cli,"
+            " joshupscale_torch.runtime.native_glue\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"
             "assert not bad, bad\n")
