@@ -5,8 +5,9 @@
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc`` and
 prints each kernel's registers and spills (``ptxas -v``), holds K1 (C =
-32, 48, 64; full frame at 48 and 64) and K2 against their plain PyTorch
-versions on the card, then drives every serving path through
+32, 48, 64; full frame at 48 and 64, and at N = 2 and 4) and K2 (full
+frame at N = 1, 2 and 4) against their plain PyTorch versions on the
+card, then drives every serving path through
 ``Engine.process`` with seeded random weights at 270x480 -> 1080x1920:
 the quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16,
 68 K1 + 1 K2 launches a step), the PS2 tiers (flow autoencoder,
@@ -27,7 +28,17 @@ with CUDA events.  On the quality tier it drives the runtime:
 ``process_async`` and ``process_clip`` against ``process``, a
 ``VideoStream`` on the card against the CPU, ``NativeEngine`` on a
 package written by ``save_package``, then splits ``process`` into its
-parts and times ``process_async`` and ``Engine.benchmark``.  Then it
+parts and times ``process_async`` and ``Engine.benchmark``.  The int8
+tier (``quantize_params_int8``: 0 K1 + 1 K2 a frame) is driven and
+checked like the float paths on the quality tier with dynamic scales,
+with scales from ``calibrate`` (run on the card and on the CPU, the
+range maps compared) and on ``ps2_style``, timed, and held against the
+float tier's frames (mean u8 difference and PSNR, informational).
+Multi-stream serving: ``ShardedEngine`` on the card with 2 and 4 streams
+(K1 at N = 2 and 4; checked against ``Engine(batch_size=2)`` and each
+stream against the single-stream engine, frames/s beside it), ``PipelinedEngine`` with both stages
+on the card (two frame graphs; checked against ``Engine``, latency and
+``process_async`` throughput beside it), and K1 timed at N = 2.  Then it
 drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
@@ -73,6 +84,7 @@ FRAMES = 8  # driven through Engine.process, launches counted
 REF_FRAMES = 3  # of those, held against the CPU run
 TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
 VARIANT_FRAMES = 3  # each serving option: driven, counted, held vs CPU
+INT8_REF_FRAMES = 2  # each int8 path: held against the CPU run
 REPLAY_FRAMES = 6  # each path: replays held against eager steps
 
 
@@ -98,8 +110,10 @@ def k1_bound_ms(n, h, w, c, residual) -> tuple:
 
 def phase_k1(torch, rng, device):
     """K1 vs its plain version: the full frame in bf16 at C = 64 (the
-    quality and PS2-style generators) and 48 (PS2-fast), C = 32/48 and
-    f32 small.  Returns the largest error at full frame by C."""
+    quality and PS2-style generators), 48 (PS2-fast) and C = 64 at N = 2
+    and 4 (the batches of ``ShardedEngine``), C = 32/48 and f32 small.
+    Returns the largest error at full frame by C (N = 2 and 4 as "n2"
+    and "n4")."""
     from joshupscale_torch.kernels.resblock import (
         resblock_conv3x3, resblock_conv3x3_plain)
 
@@ -119,11 +133,13 @@ def phase_k1(torch, rng, device):
     # round once: they may differ by the f32 summation order and one
     # rounding of the output, i.e. about one bf16 ulp (2^-8 relative).
     tol = {torch.bfloat16: 1 / 64, torch.float32: 1e-4}
-    cases = [((1, H, W), 64, torch.bfloat16), ((1, H, W), 48, torch.bfloat16),
-             ((2, 19, 37), 32, torch.bfloat16),
-             ((2, 19, 37), 48, torch.bfloat16), ((1, 45, 80), 64, torch.float32),
-             ((2, 19, 37), 32, torch.float32)]
-    worst_main = {64: 0.0, 48: 0.0}
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [((1, H, W), 64, bf16), ((1, H, W), 48, bf16),
+             ((2, H, W), 64, bf16), ((4, H, W), 64, bf16),
+             ((2, 19, 37), 32, bf16),
+             ((2, 19, 37), 48, bf16), ((1, 45, 80), 64, f32),
+             ((2, 19, 37), 32, f32)]
+    worst_main = {64: 0.0, 48: 0.0, "n2": 0.0, "n4": 0.0}
     for shape, c, dtype in cases:
         x, wt, s, t, r = operands(shape, c, dtype)
         for res, act in ((None, "relu"), (r, "relu"), (r, "lrelu")):
@@ -140,8 +156,9 @@ def phase_k1(torch, rng, device):
                 raise AssertionError(
                     f"K1 {shape} C={c} {dtype} res={res is not None} {act}: "
                     f"max abs err {worst}")
-            if shape == (1, H, W):
-                worst_main[c] = max(worst_main[c], worst)
+            if shape[1:] == (H, W):
+                key = c if shape[0] == 1 else f"n{shape[0]}"
+                worst_main[key] = max(worst_main[key], worst)
             log(f"K1 {dtype} {shape} C={c} residual={res is not None} "
                 f"{act}: max_abs_err={worst:.3g} (bound {tol[dtype]:.3g}"
                 f"*(1+|ref|)) ok")
@@ -149,14 +166,15 @@ def phase_k1(torch, rng, device):
 
 
 def phase_k2(torch, rng, device):
-    """K2 vs its plain version, bit-exact; returns the largest |got - ref|
-    over the cases (0 when they agree)."""
+    """K2 vs its plain version, bit-exact, at N = 1, 2 (as T x N) and 4
+    (``ShardedEngine``'s batches); returns the largest |got - ref| over
+    the cases (0 when they agree)."""
     from joshupscale_torch.kernels.display import (
         d2s_display_u8, d2s_display_u8_plain)
 
     worst = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in ((1, H, W, 48), (2, 1, H, W, 48)):
+        for shape in ((1, H, W, 48), (2, 1, H, W, 48), (4, H, W, 48)):
             x = torch.from_numpy(np.clip(
                 rng.standard_normal(shape).astype(np.float32) * 0.3,
                 -0.5, 0.5)).to(device, dtype)
@@ -355,20 +373,24 @@ def check_graph_kernels(torch, name, engine, frames, device, k1_per_frame,
 
 
 def drive_path(torch, name, config, seed, device, k1_per_frame,
-               k2_per_frame, n_frames=FRAMES, ref_frames=REF_FRAMES):
+               k2_per_frame, n_frames=FRAMES, ref_frames=REF_FRAMES,
+               transform=None):
     """One serving path at full frame: the launch counts set to 0, the
     engine built (warm-up steps and the capture of the frame graph) and
     ``n_frames`` frames through ``Engine.process``; the counts read and
     the graph's recorded launches checked; the output checked; a step
     checked for synchronising calls; the first ``ref_frames`` frames
     held against the same engine on the CPU; replays held against eager
-    steps."""
+    steps.  ``transform`` makes the served params from the seeded float
+    ones (``built.params``), e.g. ``quantize_params_int8``."""
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
 
     t0 = time.perf_counter()
     built = create_models(config, seed=seed)["inference"]
     params = seeded_params(torch, built, seed)
+    if transform is not None:
+        params = transform(params)
     frames = frames_for(n_frames, seed)
 
     kernels = all_kernels()
@@ -425,20 +447,22 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     return engine, frames, k1, k2, built
 
 
-def card_vs_cpu(name, what, got, ref):
+def card_vs_cpu(name, what, got, ref, against="CPU plain run"):
     """The card's u8 frame against the CPU's: bf16 on both sides,
     rounded at other places (cuDNN/cuBLAS vs oneDNN/MKL for the plain
     convs and products, the kernel's sum order): a few u8 steps where a
     flip propagates, rarely more.  Fails beyond mean 0.5 or 1% of the
-    values off by more than 2."""
+    values off by more than 2.  ``against`` names another reference
+    held to the same bound."""
     diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
     mean_d, share = float(diff.mean()), float((diff > 2).mean())
-    log(f"{name} vs CPU plain run, {what}: u8 max diff {int(diff.max())}, "
+    log(f"{name} vs {against}, {what}: u8 max diff {int(diff.max())}, "
         f"mean {mean_d:.4f}, share of values off by more than 2: "
         f"{share:.5f}")
     if mean_d > 0.5 or share > 0.01:
-        raise AssertionError(f"{name}: card and CPU runs disagree beyond "
+        raise AssertionError(f"{name} and {against} disagree beyond "
                              f"bound")
+    return int(diff.max())
 
 
 def time_frames(torch, name, engine, frames, device, n=TIMED_FRAMES):
@@ -494,8 +518,8 @@ def time_steps(torch, name, engine, frames, device):
             "replayed_device_ms": dev["replayed"]}
 
 
-def time_k1(torch, device, c):
-    """K1's conv_1 (no residual) and conv_2 (residual) at (1, H, W, c)
+def time_k1(torch, device, c, n=1):
+    """K1's conv_1 (no residual) and conv_2 (residual) at (n, H, W, c)
     bf16 against the plain version, its bound and ``F.conv2d``."""
     import torch.nn.functional as F
 
@@ -504,9 +528,9 @@ def time_k1(torch, device, c):
     from joshupscale_torch.tools.timing import cuda_time_ms
 
     rng = np.random.default_rng(7)
-    x = torch.from_numpy(rng.standard_normal((1, H, W, c)).astype(
+    x = torch.from_numpy(rng.standard_normal((n, H, W, c)).astype(
         np.float32) * 0.5).to(device, torch.bfloat16)
-    res = torch.from_numpy(rng.standard_normal((1, H, W, c)).astype(
+    res = torch.from_numpy(rng.standard_normal((n, H, W, c)).astype(
         np.float32)).to(device, torch.bfloat16)
     wt = torch.from_numpy(rng.standard_normal((c, 3, 3, c)).astype(
         np.float32) / np.sqrt(9 * c)).to(device, torch.bfloat16)
@@ -518,17 +542,17 @@ def time_k1(torch, device, c):
                           reps=20)
         plain = cuda_time_ms(
             lambda: resblock_conv3x3_plain(x, wt, s, o, r, "relu"), reps=5)
-        bound, by = k1_bound_ms(1, H, W, c, r is not None)
+        bound, by = k1_bound_ms(n, H, W, c, r is not None)
         k1[name] = (ms, plain, bound, by)
-        log(f"K1 {name} (1,{H},{W},{c}) bf16: {ms:.4f} ms, plain "
+        log(f"K1 {name} ({n},{H},{W},{c}) bf16: {ms:.4f} ms, plain "
             f"{plain:.4f} ms, bound {bound:.4f} ms ({by}); "
-            f"{k1_flops(1, H, W, c) / (ms * 1e-3) / PEAK_BF16_FLOPS:.1%} of "
+            f"{k1_flops(n, H, W, c) / (ms * 1e-3) / PEAK_BF16_FLOPS:.1%} of "
             f"the bf16 peak, {bound / ms:.1%} of the bound's rate")
     w_oihw = wt.permute(0, 3, 1, 2)
     x_nchw = x.permute(0, 3, 1, 2)  # channels-last memory
     lib_ms = cuda_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
                           reps=20)
-    log(f"library yardstick F.conv2d (1,{H},{W},{c}) bf16 channels-last: "
+    log(f"library yardstick F.conv2d ({n},{H},{W},{c}) bf16 channels-last: "
         f"{lib_ms:.4f} ms")
     return k1, lib_ms
 
@@ -696,6 +720,10 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     if "conv3x3" in name:
         return "K1 resblock_conv3x3"
+    if "i16832gemm" in name or "imma" in low:
+        return "int8 product (_int_mm)"
+    if "reduce_kernel" in name:
+        return "reductions (absmax)"
     if "d2s_display" in name:
         return "K2 d2s_display_u8"
     if "max_pool" in low:
@@ -822,13 +850,263 @@ def phase_variants(torch, seed, device, paths):
     return launches
 
 
-def phase_profiled(torch, paths, ps2, device, profile_dir):
+def int8_vs_float(torch, name, engine, built, frames, device):
+    """The int8 path's frames against the float tier's from the same
+    (seeded float) params and frames: u8 mean difference and PSNR.
+    Informational: int8 is another result, not a rounding of bf16."""
+    from joshupscale_torch.runtime.engine import Engine
+
+    float_engine = Engine(built.obj, built.params, device=device)
+    engine.reset()
+    a = np.stack([engine.process(f) for f in frames]).astype(np.float64)
+    b = np.stack([float_engine.process(f) for f in frames]).astype(
+        np.float64)
+    del float_engine
+    mse = float(((a - b) ** 2).mean())
+    out = {"u8_mean_diff": float(np.abs(a - b).mean()),
+           "psnr_db": float(10 * np.log10(255.0 ** 2 / mse)) if mse else
+           float("inf")}
+    log(f"{name} vs the bf16 tier (same params and {len(frames)} frames): "
+        f"u8 mean diff {out['u8_mean_diff']:.4f}, PSNR "
+        f"{out['psnr_db']:.2f} dB (informational)")
+    return out
+
+
+def phase_int8(torch, seed, device, paths):
+    """The int8 tier at full frame (``quantize_params_int8`` of the
+    seeded float params; every 3x3 C x C conv quantized, so 0 K1 and 1
+    K2 a frame): the quality tier with dynamic activation scales, the
+    quality tier with scales calibrated by ``calibrate(method="minmax")``
+    over 4 frames on the card (and on the CPU, the two range maps
+    compared), and ``ps2_style`` (the autoencoder's 256-channel convs: K
+    = 2304, int32 sums past 2^24), each driven and checked as the float
+    paths (launches from 0, sync, card vs CPU, replays vs eager), timed,
+    and held against the float tier's frames (informational)."""
+    from joshupscale_torch.export.quantize import (
+        calibrate,
+        quantize_params_int8,
+    )
+
+    out = {}
+
+    def run(name, config, transform):
+        engine, frames, k1, k2, built = drive_path(
+            torch, name, config, seed, device, 0, 1,
+            ref_frames=INT8_REF_FRAMES, transform=transform)
+        out[name] = {"k1": k1, "k2": k2, **time_frames(
+            torch, name, engine, frames, device, n=23),
+            "vs_float": int8_vs_float(torch, name, engine, built,
+                                      frames[:4], device)}
+        paths[name] = (engine, frames, 0, 1)
+        return built
+
+    built = run("int8 quality", quality_config(), quantize_params_int8)
+    cal = frames_for(4, seed + 1)[:, None]
+    t0 = time.perf_counter()
+    ranges = calibrate(built.obj, built.params, cal, method="minmax",
+                       device=device)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranges_cpu = calibrate(built.obj, built.params, cal, method="minmax",
+                           device="cpu")
+    t_cpu = time.perf_counter() - t0
+    # flow: conv_1, the head, 10 blocks; generator: conv_1, 24 blocks.
+    if sorted(ranges) != sorted(ranges_cpu) or len(ranges) != 3 + 2 * 34:
+        raise AssertionError(f"calibration keys differ: {len(ranges)} on "
+                             f"the card, {len(ranges_cpu)} on the CPU")
+    gap = max(abs(ranges[k] - ranges_cpu[k]) / ranges_cpu[k]
+              for k in ranges)
+    log(f"calibrate(minmax) over 4 frames: {len(ranges)} conv inputs "
+        f"(flow.conv_1 ... generator.block_24.conv_2), card {t_card:.1f} s, "
+        f"CPU {t_cpu:.1f} s; largest relative gap between the two range "
+        f"maps {gap:.3g}")
+    out["calibration"] = {"keys": len(ranges), "max_rel_gap": gap,
+                          "card_s": t_card, "cpu_s": t_cpu}
+    run("int8 quality calibrated", quality_config(),
+        lambda p: quantize_params_int8(p, ranges=ranges))
+    run("int8 ps2_style", ps2_config("ps2_style"), quantize_params_int8)
+    return out
+
+
+def time_process(fn, n=23):
+    """Median and p80 ms of ``n`` blocking calls ``fn(i)`` (first 3
+    dropped), host clock."""
+    lat = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        fn(i)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(lat[3:])
+    return float(np.median(lat)), float(np.percentile(lat, 80))
+
+
+def phase_parallel(torch, seed, device, keep):
+    """Multi-stream and pipelined serving of the quality tier on one
+    card.  ``ShardedEngine(devices=[card], streams_per_device=2 and 4)``:
+    launches from 0 (68 K1 + 1 K2 a step, K1 at N = 2 and 4), outputs
+    against ``Engine(batch_size=2)`` bit for bit, every stream of the
+    batch against the single-stream ``Engine`` on that stream's frames
+    (the card-vs-CPU bound: a library conv or product may take another
+    algorithm at another batch size; bit-exactness is printed), total
+    and per-stream frames/s of ``process`` beside the single-stream
+    ``Engine``.
+    ``PipelinedEngine`` on (card, card): launches from 0 (the flow graph
+    20 K1, the generator graph 48 K1 + 1 K2), its stream and
+    ``process_clip`` against ``Engine``'s bit for bit, ``process``
+    latency and ``process_async`` throughput beside ``Engine``'s.  The
+    2-stream engine and a batch go into ``keep`` for the profiler."""
+    from joshupscale_torch.models.registry import create_models
+    from joshupscale_torch.parallel import PipelinedEngine, ShardedEngine
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
+
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
+    built = create_models(quality_config(), seed=seed)["inference"]
+    params = seeded_params(torch, built, seed)
+    frames = frames_for(FRAMES, seed)
+    nf = len(frames)
+    kernels = all_kernels()
+    steps = WARMUP_STEPS + 1
+    single = Engine(built.obj, params, device=device)
+    single_ms, single_p80 = time_process(
+        lambda i: single.process(frames[i % nf]))
+    res = {"single": {"ms": single_ms, "p80_ms": single_p80,
+                      "fps": 1e3 / single_ms}}
+    log(f"single-stream Engine.process: median {single_ms:.3f} ms, "
+        f"{1e3 / single_ms:.1f} frames/s")
+    for s in (2, 4):
+        name = f"sharded x{s}"
+        for k in kernels:
+            k.launches = 0
+        sharded = ShardedEngine(built.obj, params, devices=[device],
+                                streams_per_device=s)
+        batches = np.stack([frames[(np.arange(s) + t) % nf]
+                            for t in range(nf)])
+        outs = [sharded.process(b) for b in batches[:3]]
+        torch.cuda.synchronize()
+        k1, k2 = kernels[0].launches, kernels[1].launches
+        want = {"resblock_conv3x3": K1_PER_FRAME, "d2s_display_u8": 1,
+                "probe_dot": 0, "probe_patch_dot": 0}
+        log(f"{name}: engine built and 3 steps of {s} streams: K1 "
+            f"launches={k1}, K2 launches={k2}; in the graph: "
+            f"{sharded.engines[0].graph_launches}")
+        if (k1 != K1_PER_FRAME * steps or k2 != steps
+                or sharded.engines[0].graph_launches != want):
+            raise AssertionError(f"{name}: launches {k1}, {k2}")
+        if s == 2:
+            batched = Engine(built.obj, params, batch_size=2, device=device)
+            for b, o in zip(batches[:3], outs):
+                if not np.array_equal(batched.process(b), o):
+                    raise AssertionError("ShardedEngine differs from "
+                                         "Engine(batch_size=2)")
+            del batched
+            log(f"{name}: 3 steps equal Engine(batch_size=2) bit for bit")
+        worst, exact = 0, 0
+        for j in range(s):
+            single.reset()
+            ref = np.stack([single.process(b[j]) for b in batches[:3]])
+            got = np.stack([o[j] for o in outs])
+            exact += int(np.array_equal(got, ref))
+            worst = max(worst, card_vs_cpu(
+                name, f"stream {j}, 3 steps", got, ref,
+                against="the single-stream Engine"))
+        log(f"{name}: each stream within bound of the single-stream Engine "
+            f"on its own frames; {exact} of {s} streams bit for bit, u8 "
+            f"max diff {worst}")
+        ms, p80 = time_process(lambda i: sharded.process(batches[i % nf]))
+        inner = sharded.engines[0]
+        dev_batch = torch.from_numpy(batches[0]).to(device)
+        step_ms = cuda_time_ms(lambda: inner.step(dev_batch), reps=5,
+                               device_only=False)
+        res[name] = {"k1": k1, "k2": k2, "ms": ms, "p80_ms": p80,
+                     "streams_exact": exact, "max_diff_vs_single": worst,
+                     "step_ms": step_ms, "fps_total": s * 1e3 / ms,
+                     "fps_per_stream": 1e3 / ms}
+        log(f"{name}: process median {ms:.3f} ms (p80 {p80:.3f}) for {s} "
+            f"frames: {s * 1e3 / ms:.1f} frames/s in all, "
+            f"{1e3 / ms:.1f} per stream (single-stream Engine "
+            f"{1e3 / single_ms:.1f}); replayed step of the {s}-stream "
+            f"batch {step_ms:.3f} ms")
+        if s == 2:
+            keep[name] = (inner, dev_batch)
+        del sharded
+
+    for k in kernels:
+        k.launches = 0
+    piped = PipelinedEngine(built.obj, params, devices=(device, device))
+    outs = [piped.process(f) for f in frames[:6]]
+    torch.cuda.synchronize()
+    k1, k2 = kernels[0].launches, kernels[1].launches
+    log(f"pipelined: engine built (two graphs) and 6 frames: K1 launches="
+        f"{k1}, K2 launches={k2}; in the graphs: {piped.graph_launches}")
+    flow_k1 = 2 * 10
+    if (k1 != K1_PER_FRAME * steps + flow_k1 or k2 != steps
+            or piped.graph_launches["flow"]["resblock_conv3x3"] != flow_k1
+            or piped.graph_launches["generator"] != {
+                "resblock_conv3x3": K1_PER_FRAME - flow_k1,
+                "d2s_display_u8": 1, "probe_dot": 0,
+                "probe_patch_dot": 0}):
+        raise AssertionError(f"pipelined: launches {k1}, {k2}")
+    single.reset()
+    ref = np.stack([single.process(f) for f in frames[:6]])
+    if not np.array_equal(np.stack(outs), ref):
+        raise AssertionError("PipelinedEngine differs from Engine")
+    piped.reset()
+    if not np.array_equal(piped.process_clip(frames[:6]), ref):
+        raise AssertionError("PipelinedEngine.process_clip differs")
+    log("pipelined: 6 streamed frames and process_clip equal Engine's bit "
+        "for bit")
+    lat = {"engine": [], "pipelined": []}
+    engines = {"engine": single, "pipelined": piped}
+    for kind in ("engine", "pipelined", "pipelined", "engine"):
+        lat[kind].append(time_process(
+            lambda i: engines[kind].process(frames[i % nf]))[0])
+    fps = {}
+    for kind, e in engines.items():
+        for f in frames[:3]:
+            e.process_async(f)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i in range(50):
+            e.process_async(frames[i % nf])
+        torch.cuda.synchronize()
+        fps[kind] = 50 / (time.perf_counter() - t1)
+    log(f"pipelined on one card: process median {lat['pipelined'][0]:.3f} "
+        f"/ {lat['pipelined'][1]:.3f} ms vs Engine {lat['engine'][0]:.3f} / "
+        f"{lat['engine'][1]:.3f} ms (in turns); process_async over 50 "
+        f"frames (max_inflight 2) {fps['pipelined']:.1f} vs Engine "
+        f"{fps['engine']:.1f} frames/s")
+    res["pipelined"] = {"k1": k1, "k2": k2, "ms": lat["pipelined"],
+                        "engine_ms": lat["engine"],
+                        "async_fps": fps["pipelined"],
+                        "engine_async_fps": fps["engine"]}
+    return res
+
+
+def log_parts(torch, name, engine, dev_frame):
+    """The device time of ``engine``'s replayed step by kernel group,
+    from a profile of 3 replays."""
+    _, events, _ = replay_kernels(torch, engine, dev_frame)
+    groups = {}
+    for e in events:
+        key = kernel_group(e["name"])
+        groups[key] = groups.get(key, 0.0) + e["dur"] / 3e3
+    log(f"{name}: {len(events) / 3:.0f} device ops a replayed step, "
+        f"{sum(groups.values()):.3f} ms of device time: " + "; ".join(
+            f"{k} {v:.3f}" for k, v in sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+    return groups
+
+
+def phase_profiled(torch, paths, ps2, device, profile_dir, batched):
     """The phases under ``torch.profiler``, after every host-clock
     timing (a profiler session can leave the host launching more
     slowly): each path's replays counted by kernel; the PS2 stages split
     by kernel; with ``profile_dir``, each tier's replays profiled into
     it; then the quality step timed again, eager against replayed, to
-    show the profiler's after-effect."""
+    show the profiler's after-effect.  Also the device time of a step
+    by part on quality, the int8 paths and the 2-stream batch
+    (``batched``)."""
     for name, (engine, frames, k1_per_frame, k2_per_frame) in paths.items():
         check_graph_kernels(torch, name, engine, frames, device,
                             k1_per_frame, k2_per_frame)
@@ -836,6 +1114,12 @@ def phase_profiled(torch, paths, ps2, device, profile_dir):
         engine, frames = paths[tier][:2]
         profile_stages(torch, tier, engine, frames, device,
                        ps2[tier]["split"])
+    for name in ("quality", "int8 quality", "int8 ps2_style"):
+        engine, frames = paths[name][:2]
+        log_parts(torch, name, engine,
+                  torch.from_numpy(frames[0][None]).to(device))
+    for name, (engine, dev_batch) in batched.items():
+        log_parts(torch, name, engine, dev_batch)
     if profile_dir:
         for tier in ("quality", "ps2_style", "ps2_fast"):
             engine, frames = paths[tier][:2]
@@ -986,11 +1270,16 @@ def main() -> int:
     del engine, built
     ps2 = phase_ps2(torch, args.seed, device, paths)
     variants = phase_variants(torch, args.seed, device, paths)
+    int8 = phase_int8(torch, args.seed, device, paths)
+    batched = {}
+    par = phase_parallel(torch, args.seed, device, batched)
+    k1_n2, lib_n2 = time_k1(torch, device, 64, n=2)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
-    after = phase_profiled(torch, paths, ps2, device, args.profile)
+    after = phase_profiled(torch, paths, ps2, device, args.profile, batched)
     paths.clear()
+    batched.clear()
 
     (c1, p1, b1, by1), (c2, p2, b2, by2) = (times["k1"]["conv_1"],
                                             times["k1"]["conv_2"])
@@ -1002,7 +1291,14 @@ def main() -> int:
                **{t: (ps2[t]["k1"], ps2[t]["k2"])
                   for t in ("ps2_style", "ps2_fast")},
                **{f"variant {v}": (n["K1"], n["K2"])
-                  for v, n in variants.items()}}
+                  for v, n in variants.items()},
+               **{name: (int8[name]["k1"], int8[name]["k2"])
+                  for name in ("int8 quality", "int8 quality calibrated",
+                               "int8 ps2_style")},
+               **{name: (par[name]["k1"], par[name]["k2"])
+                  for name in ("sharded x2", "sharded x4", "pipelined")}}
+    (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
+                                               k1_n2["conv_2"])
     kernels = [
         {"name": "resblock_conv3x3", "route": "cuda",
          "source": "joshupscale_torch/csrc/resblock_conv.cu",
@@ -1022,7 +1318,13 @@ def main() -> int:
                  "bound_by": ey2, "library_ms": ps2["lib_ms_c48"],
                  "max_abs_err": k1_err[48],
                  "share_of_bf16_peak": k1_flops(1, H, W, 48)
-                 / ((d1 + d2) / 2 * 1e-3) / PEAK_BF16_FLOPS}},
+                 / ((d1 + d2) / 2 * 1e-3) / PEAK_BF16_FLOPS},
+         "n2": {"shape": [2, H, W, 64], "ms": (n1 + n2) / 2,
+                "conv_1_ms": n1, "conv_2_ms": n2, "plain_ms": (nq1 + nq2) / 2,
+                "bound_ms": (nb1 + nb2) / 2, "bound_by": nby2,
+                "library_ms": lib_n2, "max_abs_err": k1_err["n2"],
+                "fraction_of_bound": (nb1 + nb2) / (n1 + n2)},
+         "n4": {"shape": [4, H, W, 64], "max_abs_err": k1_err["n4"]}},
         {"name": "d2s_display_u8", "route": "cuda",
          "source": "joshupscale_torch/csrc/display_u8.cu",
          "replaces": "joshupscale_tpu/ops/display.py:35",
@@ -1047,6 +1349,29 @@ def main() -> int:
             f"{t['replayed_ms'][0]:.3f} / {t['replayed_ms'][1]:.3f} ms, "
             f"device only {t['eager_device_ms']:.3f} / "
             f"{t['replayed_device_ms']:.3f} ms on {card}")
+    for name, t in int8.items():
+        if name == "calibration":
+            continue
+        log(f"{name}: Engine.process median {t['frame_ms']:.3f} ms, p80 "
+            f"{t['frame_p80_ms']:.3f} ms; step + display eager "
+            f"{t['eager_ms'][0]:.3f} / {t['eager_ms'][1]:.3f} ms, replayed "
+            f"{t['replayed_ms'][0]:.3f} / {t['replayed_ms'][1]:.3f} ms; vs "
+            f"bf16: u8 mean diff {t['vs_float']['u8_mean_diff']:.4f}, PSNR "
+            f"{t['vs_float']['psnr_db']:.2f} dB on {card}")
+    log(f"parallel: single-stream process {par['single']['fps']:.1f} "
+        f"frames/s; " + "; ".join(
+            f"{name} {par[name]['fps_total']:.1f} in all, "
+            f"{par[name]['fps_per_stream']:.1f} per stream (replayed step "
+            f"{par[name]['step_ms']:.3f} ms; streams bit for bit with the "
+            f"single-stream Engine: {par[name]['streams_exact']}, u8 max "
+            f"diff {par[name]['max_diff_vs_single']})"
+            for name in ("sharded x2", "sharded x4"))
+        + f"; pipelined process {par['pipelined']['ms'][0]:.3f} / "
+        f"{par['pipelined']['ms'][1]:.3f} ms (Engine "
+        f"{par['pipelined']['engine_ms'][0]:.3f} / "
+        f"{par['pipelined']['engine_ms'][1]:.3f}), async "
+        f"{par['pipelined']['async_fps']:.1f} (Engine "
+        f"{par['pipelined']['engine_async_fps']:.1f}) frames/s on {card}")
     log(f"quality after the profiler sessions: step + display eager "
         f"{after['eager_ms'][0]:.3f} / {after['eager_ms'][1]:.3f} ms, "
         f"replayed {after['replayed_ms'][0]:.3f} / "

@@ -10,6 +10,10 @@ port's, and ``to_flat_numpy`` is its inverse:
   (see ``nn/layers.py``);
 - deconv kernels ``(2, 2, O, I)`` (under ``conv_trans_*``) -> the 1x1
   product ``(I, 4*O)`` the s2d tail multiplies by;
+- int8 ``kernel_q`` (``export/quantize.py``) the same ways, kept int8;
+  its ``kernel_scale`` (per output channel of a conv, per input channel
+  of a deconv: the reference's last axis either way) and ``act_scale``
+  as float32;
 - everything else (BN stats, biases, fade counters) as float32 tensors.
 
 Numpy only: no JAX is needed to read or write a reference checkpoint.
@@ -29,17 +33,14 @@ def _convert(path: str, arr: np.ndarray) -> torch.Tensor:
     parts = path.split(".")
     leaf = parts[-1]
     layer = parts[-2] if len(parts) > 1 else ""
-    if leaf in ("kernel_q", "kernel_scale", "act_scale"):
-        raise NotImplementedError(
-            f"{path}: int8-quantized params are not ported yet; they wait "
-            f"for the export/quantize slice")
     arr = np.asarray(arr)
-    if leaf == "kernel" and arr.ndim == 4:
+    if leaf in ("kernel", "kernel_q") and arr.ndim == 4:
         if layer.startswith("conv_trans"):
             arr = deconv_matrix(arr)
         else:
             arr = np.ascontiguousarray(arr.transpose(3, 0, 1, 2))
-    return torch.from_numpy(np.array(arr, dtype=np.float32))
+    dtype = np.int8 if leaf == "kernel_q" else np.float32
+    return torch.from_numpy(np.array(arr, dtype=dtype))
 
 
 def from_flat_numpy(flat: Dict[str, np.ndarray]):
@@ -58,12 +59,14 @@ def _export(path: str, t: torch.Tensor) -> np.ndarray:
     parts = path.split(".")
     leaf = parts[-1]
     layer = parts[-2] if len(parts) > 1 else ""
-    arr = t.detach().to("cpu", torch.float32).numpy()
-    if leaf == "kernel" and layer.startswith("conv_trans") and arr.ndim == 2:
+    dtype = torch.int8 if leaf == "kernel_q" else torch.float32
+    arr = t.detach().to("cpu", dtype).numpy()
+    is_kernel = leaf in ("kernel", "kernel_q")
+    if is_kernel and layer.startswith("conv_trans") and arr.ndim == 2:
         # (I, 4*O) with output channel (dy*2 + dx)*O + o -> (2, 2, O, I).
         in_ch, out4 = arr.shape
         arr = arr.reshape(in_ch, 2, 2, out4 // 4).transpose(1, 2, 3, 0)
-    elif leaf == "kernel" and arr.ndim == 4:
+    elif is_kernel and arr.ndim == 4:
         arr = arr.transpose(1, 2, 3, 0)  # OHWI -> HWIO
     return np.ascontiguousarray(arr)
 

@@ -5,7 +5,8 @@ Port of ``flow_resnet_*`` and ``flow_autoencoder_*`` from
 frames (current first, then the previous ones, newest to oldest); the
 output is the 32-channel head, depth_to_space(4)'d unless
 ``s2d_output``.  Each ``*_apply`` takes the serving params that its
-``prepare_*`` makes once from the raw ones.
+``prepare_*`` makes once from the raw ones (float or int8, see
+``models/common.py``; ``path=...`` is the calibration route).
 """
 
 from __future__ import annotations
@@ -17,7 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from joshupscale_torch.models.common import (
-    fold_conv_bn,
+    batch_norm_apply,
+    conv_bn_apply,
+    prepare_bn,
+    prepare_conv,
+    prepare_conv_bn,
     prepare_res_blocks,
     res_block_init,
     res_blocks_apply,
@@ -26,9 +31,7 @@ from joshupscale_torch.nn.layers import (
     batch_norm_init,
     conv2d,
     conv2d_init,
-    fold_bn,
     get_activation,
-    require_float_kernel,
 )
 from joshupscale_torch.ops.resize import upscale_bilinear
 from joshupscale_torch.ops.space_depth import depth_to_space
@@ -51,13 +54,15 @@ def flow_resnet_init(rng: np.random.Generator, num_inputs: int = 4,
     return params
 
 
-def prepare_flow_resnet(params, dtype: torch.dtype):
+def prepare_flow_resnet(params, dtype: torch.dtype, path=None):
     """Raw params -> serving params in ``dtype``: ``conv_1`` with
-    ``bn_1`` folded in, the head cast, every res block folded."""
-    require_float_kernel(params["conv_2"])
-    return {**prepare_res_blocks(params, dtype),
-            "conv_1": fold_conv_bn(params["conv_1"], params["bn_1"], dtype),
-            "conv_2": {k: v.to(dtype) for k, v in params["conv_2"].items()}}
+    ``bn_1`` (folded when float), every res block, the head (``path``:
+    the net's dotted path, for calibration: nothing folded)."""
+    sub = (lambda k: None) if path is None else (lambda k: f"{path}.{k}")
+    return {**prepare_res_blocks(params, dtype, path),
+            "conv_1": prepare_conv_bn(params["conv_1"], params["bn_1"],
+                                      dtype, sub("conv_1")),
+            "conv_2": prepare_conv(params["conv_2"], dtype, sub("conv_2"))}
 
 
 def flow_resnet_apply(params, frames: List[torch.Tensor], activation="relu",
@@ -70,7 +75,7 @@ def flow_resnet_apply(params, frames: List[torch.Tensor], activation="relu",
     if num_res_blocks is None:
         num_res_blocks = sum(1 for k in params if k.startswith("block_"))
     out = torch.cat(frames, dim=-1)
-    out = act(conv2d(params["conv_1"], out))
+    out = act(conv_bn_apply(params["conv_1"], out))
     out = res_blocks_apply(
         params, [f"block_{i + 1}" for i in range(num_res_blocks)], out,
         activation)
@@ -116,37 +121,33 @@ def flow_autoencoder_init(rng: np.random.Generator, num_inputs: int = 4,
     return params
 
 
-def _conv_bn_params(conv_params, bn_params, dtype: torch.dtype):
-    """A conv and its batch norm, NOT folded: the reference's
-    autoencoder runs the conv, then ``x * scale + offset`` in the
-    compute dtype, and in bf16 a fold would round at another place."""
-    require_float_kernel(conv_params)
-    scale, offset = fold_bn(bn_params)
-    return ({"kernel": conv_params["kernel"].to(dtype)},
-            {"scale": scale.to(dtype), "offset": offset.to(dtype)})
-
-
-def prepare_flow_autoencoder(params, dtype: torch.dtype):
-    """Raw params -> serving params in ``dtype``: every conv kernel cast
-    and every batch norm as a ``(scale, offset)`` pair in ``dtype``."""
+def prepare_flow_autoencoder(params, dtype: torch.dtype, path=None):
+    """Raw params -> serving params in ``dtype``: every conv
+    (``prepare_conv``) and every batch norm as a ``(scale, offset)``
+    pair in ``dtype``, NOT folded: the reference's autoencoder runs the
+    conv, then ``x * scale + offset`` in the compute dtype, and in bf16
+    a fold would round at another place (``path``: the net's dotted
+    path, for calibration)."""
+    sub = (lambda k: None) if path is None else (lambda k: f"{path}.{k}")
     out = {}
-    for name, sub in params.items():
+    for name, p in params.items():
         if name.startswith("block_"):
-            c1, b1 = _conv_bn_params(sub["conv_1"], sub["bn_1"], dtype)
-            c2, b2 = _conv_bn_params(sub["conv_2"], sub["bn_2"], dtype)
-            out[name] = {"conv_1": c1, "bn_1": b1, "conv_2": c2, "bn_2": b2}
+            out[name] = {
+                **{f"conv_{i}": prepare_conv(p[f"conv_{i}"], dtype,
+                                             sub(f"{name}.conv_{i}"))
+                   for i in (1, 2)},
+                **{f"bn_{i}": prepare_bn(p[f"bn_{i}"], dtype)
+                   for i in (1, 2)}}
     if "conv_1" in params:
-        out["conv_1"], out["bn_1"] = _conv_bn_params(
-            params["conv_1"], params["bn_1"], dtype)
-    require_float_kernel(params["conv_2"])
-    out["conv_2"] = {k: v.to(dtype) for k, v in params["conv_2"].items()}
+        out["conv_1"] = prepare_conv(params["conv_1"], dtype, sub("conv_1"))
+        out["bn_1"] = prepare_bn(params["bn_1"], dtype)
+    out["conv_2"] = prepare_conv(params["conv_2"], dtype, sub("conv_2"))
     return out
 
 
 def _conv_bn_act(conv_params, bn, x: torch.Tensor, act) -> torch.Tensor:
     """conv, then ``offset + y * scale`` in one op, then act."""
-    return act(torch.addcmul(bn["offset"], conv2d(conv_params, x),
-                             bn["scale"]))
+    return act(batch_norm_apply(bn, conv2d(conv_params, x)))
 
 
 def _max_pool_2x(x: torch.Tensor) -> torch.Tensor:

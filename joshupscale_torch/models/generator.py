@@ -22,20 +22,20 @@ import numpy as np
 import torch
 
 from joshupscale_torch.models.common import (
-    fold_conv_bn,
+    conv_bn_apply,
+    prepare_conv_bn,
     prepare_res_blocks,
     res_block_init,
     res_blocks_apply,
 )
 from joshupscale_torch.nn.layers import (
     batch_norm_init,
-    conv2d,
     conv2d_init,
     conv2d_transpose_2x,
+    deconv_kernel,
     fold_bn,
     get_activation,
     glorot_uniform,
-    require_float_kernel,
 )
 from joshupscale_torch.ops.resize import phase_kernel, phase_upscale
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
@@ -98,7 +98,9 @@ def generator_resnet_apply(params, frame: torch.Tensor,
     """
     act = get_activation(activation)
     num_blocks = sum(1 for k in params if k.startswith("block_"))
-    in_ch = params["conv_1"]["kernel"].shape[-1]
+    conv_1 = params["conv_1"].get("conv", params["conv_1"])
+    in_ch = (conv_1["kernel"].shape[-1] if "kernel" in conv_1
+             else conv_1["in_channels"])
     if pre_warp is None:
         inp = frame
     else:
@@ -109,7 +111,7 @@ def generator_resnet_apply(params, frame: torch.Tensor,
             f"conv_1 takes {in_ch} channels but the input has "
             f"{inp.shape[-1]}: prepare the params with frame_only="
             f"{pre_warp is None}")
-    out = act(conv2d(params["conv_1"], inp))
+    out = act(conv_bn_apply(params["conv_1"], inp))
     out = res_blocks_apply(
         params, [f"block_{i + 1}" for i in range(num_blocks)], out,
         activation)
@@ -144,38 +146,57 @@ def _block_diag_deconv2(w: torch.Tensor) -> torch.Tensor:
 
 def prepare_generator_resnet(params, dtype: torch.dtype,
                              s2d_output: bool = True,
-                             frame_only: bool = False):
+                             frame_only: bool = False, path=None):
     """Raw params -> serving params in ``dtype``: ``conv_1`` with
-    ``bn_1`` folded in (cut to the 3 frame channels with
-    ``frame_only``, the non-temporal variant), every res block folded,
-    and the tail's constants.  The s2d tail (``s2d_output``) takes
-    deconv1's product and bias, bn_2 tiled over deconv1's 4 groups as a
-    scale and offset, deconv2 as the block-diagonal product and bias in
-    d2s4 order, and the x4 bilinear phase kernel; the pixel tail
+    ``bn_1`` (folded when float, outside calibration; cut to the 3 frame
+    channels with ``frame_only``, the non-temporal variant), every res
+    block, and the tail's constants.  Int8 deconvs are dequantized here,
+    once, in float32 (``deconv_kernel``).  The s2d tail (``s2d_output``)
+    takes deconv1's product and bias, bn_2 tiled over deconv1's 4 groups
+    as a scale and offset, deconv2 as the block-diagonal product and
+    bias in d2s4 order, and the x4 bilinear phase kernel; the pixel tail
     (``"pixel_tail"``) the two deconv products and biases, bn_2 and the
-    phase kernel."""
+    phase kernel.
+
+    ``path`` (the calibration route) labels the convs the reference's
+    sweep records: not a ``frame_only`` ``conv_1`` (the reference cuts
+    it into a new array, which its sweep does not know) and the deconvs
+    only in the pixel tail (its s2d tail runs them as plain products).
+    """
+    sub = (lambda k: None) if path is None else (lambda k: f"{path}.{k}")
     ct1, ct2 = params["conv_trans_1"], params["conv_trans_2"]
-    require_float_kernel(ct1)
-    require_float_kernel(ct2)
     conv_1 = params["conv_1"]
     if frame_only:
-        conv_1 = {**conv_1, "kernel": conv_1["kernel"][..., :3]}
+        key = "kernel_q" if "kernel_q" in conv_1 else "kernel"
+        conv_1 = {**conv_1, key: conv_1[key][..., :3]}
     scale, offset = fold_bn(params["bn_2"])
-    skip = phase_kernel(4, 3, dtype, ct1["kernel"].device)
-    out = {**prepare_res_blocks(params, dtype),
-           "conv_1": fold_conv_bn(conv_1, params["bn_1"], dtype)}
+    w1, w2 = deconv_kernel(ct1), deconv_kernel(ct2)
+    skip = phase_kernel(4, 3, dtype, w1.device)
+    out = {**prepare_res_blocks(params, dtype, path),
+           "conv_1": prepare_conv_bn(conv_1, params["bn_1"], dtype,
+                                     sub("conv_1"))}
+    if frame_only and path is not None:
+        # Unfolded for calibration, but not recorded.
+        out["conv_1"]["conv"].pop("path", None)
     if not s2d_output:
+        tail = {}
+        for name, ct, w in (("conv_trans_1", ct1, w1),
+                            ("conv_trans_2", ct2, w2)):
+            tail[name] = {"kernel": w.to(dtype)}
+            if "bias" in ct:
+                tail[name]["bias"] = ct["bias"].to(dtype)
+            if path is not None and "kernel_q" not in ct:
+                tail[name]["path"] = sub(name)
         out["pixel_tail"] = {
-            "conv_trans_1": {k: v.to(dtype) for k, v in ct1.items()},
+            **tail,
             "bn_2": {"scale": scale.to(dtype), "offset": offset.to(dtype)},
-            "conv_trans_2": {k: v.to(dtype) for k, v in ct2.items()},
             "skip": skip,
         }
         return out
-    tail_1 = {"kernel": ct1["kernel"].to(dtype)}
+    tail_1 = {"kernel": w1.to(dtype)}
     if "bias" in ct1:
         tail_1["bias"] = ct1["bias"].repeat(4).to(dtype)
-    tail_2 = {"kernel": _block_diag_deconv2(ct2["kernel"]).to(dtype)}
+    tail_2 = {"kernel": _block_diag_deconv2(w2).to(dtype)}
     if "bias" in ct2:
         tail_2["bias"] = ct2["bias"].repeat(16).to(dtype)
     return {

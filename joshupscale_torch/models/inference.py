@@ -125,24 +125,36 @@ class InferenceModel:
             ],
         }
 
-    def prepare_params(self, params, device) -> Dict[str, Any]:
-        """Raw params -> the serving params ``apply`` takes, on
-        ``device`` in ``compute_dtype``: every fold, cast and constant
-        table of the step, made once ahead of serving, so a step copies
-        nothing from the host."""
+    def prepare_net(self, name: str, params, device,
+                    calibration: bool = False):
+        """One net's raw params (``name`` "flow" or "generator") -> its
+        serving params on ``device`` in ``compute_dtype``: every fold,
+        cast and constant table of the step, made once ahead of serving,
+        so a step copies nothing from the host.  Float or int8 params
+        (``export/quantize.py``) alike.  ``calibration`` gives the
+        calibration sweep's route: no batch norm folded, each float conv
+        labelled with its dotted path (``flow.block_1.conv_1``...)."""
         def to_dev(tree):
             if isinstance(tree, dict):
                 return {k: to_dev(v) for k, v in tree.items()}
             return tree.to(device)
 
+        path = name if calibration else None
         cdt = self.compute_dtype
-        out = {"generator": prepare_generator_resnet(
-            to_dev(params["generator"]), cdt,
-            s2d_output=self.s2d_mode and not self.remove_flow,
-            frame_only=self.remove_flow)}
-        if not self.remove_flow:
-            out["flow"] = self.flow_prepare(to_dev(params["flow"]), cdt)
-        return out
+        if name == "generator":
+            return prepare_generator_resnet(
+                to_dev(params), cdt,
+                s2d_output=self.s2d_mode and not self.remove_flow,
+                frame_only=self.remove_flow, path=path)
+        return self.flow_prepare(to_dev(params), cdt, path=path)
+
+    def prepare_params(self, params, device,
+                       calibration: bool = False) -> Dict[str, Any]:
+        """Raw params -> the serving params ``apply`` takes, on
+        ``device`` (``prepare_net`` for each net the model runs)."""
+        nets = ["generator"] + ([] if self.remove_flow else ["flow"])
+        return {name: self.prepare_net(name, params[name], device,
+                                       calibration) for name in nets}
 
     # -- forward -----------------------------------------------------------
 

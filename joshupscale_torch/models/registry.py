@@ -161,7 +161,11 @@ def _check_same_structure(template, loaded, path=""):
 
 
 def load_into(template, loaded):
-    """``loaded`` checked against ``template`` and cast to its dtypes."""
+    """``loaded`` checked against ``template`` and cast to its dtypes.
+
+    Int8 params (``kernel_q`` where the template has ``kernel``) do not
+    match a model's float template and raise ``KeyError``, as the
+    reference's ``unflatten_into`` does: quantize after loading."""
     _check_same_structure(template, loaded)
 
     def cast(t, v):

@@ -6,11 +6,24 @@ kernels are stored OHWI ``(out, kh, kw, in)``: ``kernel.permute(0, 3,
 copy), and the res-block kernel (``kernels/resblock.py``) reads OHWI
 directly.  Kernel-2 stride-2 deconvs are stored as their (I, 4*O) 1x1
 product.  ``export/weights.py`` converts the reference's kernels.
+
+Int8-quantized layers (``export/quantize.py``) hold ``kernel_q`` (int8,
+same layout), ``kernel_scale`` (float32, per leading axis: a conv's
+output channels, a deconv product's input rows) and optionally a static
+``act_scale``.  ``prepare_conv_int8`` makes a conv's once, ahead of
+serving, and ``conv2d`` runs them as the reference's int8 conv
+(``conv2d_int8``); a deconv's weights are dequantized once
+(``deconv_kernel``).
+
+A calibration sweep (``export/quantize.calibrate``) sees each conv's
+input through ``recording``: prepared params that carry a ``"path"``
+report their input to the active recorder.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import contextlib
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,21 +51,40 @@ def conv2d_init(rng: np.random.Generator, kernel_size: int, in_ch: int,
     return params
 
 
-def require_float_kernel(params) -> None:
-    """Raise for int8-quantized layer params (not ported yet)."""
-    if "kernel_q" in params:
-        raise NotImplementedError(
-            "int8 kernel_q params are not ported yet; they wait for the "
-            "export/quantize slice")
+# Called as ``record(path, x)`` with each labelled conv's input while a
+# calibration sweep runs (``recording``); None otherwise.
+_recorder: Optional[Callable[[str, torch.Tensor], None]] = None
+
+
+@contextlib.contextmanager
+def recording(record: Callable[[str, torch.Tensor], None]):
+    """Within the block, every conv (and deconv) whose params carry a
+    ``"path"`` calls ``record(path, x)`` with its input ``x``."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("a calibration sweep is already recording")
+    _recorder = record
+    try:
+        yield
+    finally:
+        _recorder = None
+
+
+def _record(params, x: torch.Tensor) -> None:
+    if _recorder is not None and "path" in params:
+        _recorder(params["path"], x)
 
 
 def conv2d(params, x: torch.Tensor) -> torch.Tensor:
     """NHWC SAME conv, stride 1, OHWI kernel; output dtype = input dtype.
 
     A plain library conv: used for the first convs and the 1x1 heads,
-    outside any kernel of the reference.
+    outside any kernel of the reference.  Int8 params (as
+    ``prepare_conv_int8`` makes them) run ``conv2d_int8``.
     """
-    require_float_kernel(params)
+    _record(params, x)
+    if "matrix_q" in params:
+        return conv2d_int8(params, x)
     kernel = params["kernel"].to(x.dtype)
     k = kernel.shape[1]
     if k % 2 == 0:
@@ -65,14 +97,132 @@ def conv2d(params, x: torch.Tensor) -> torch.Tensor:
     return out.contiguous()
 
 
+# The reference's compiled step computes ``absmax / 127.0`` as a product
+# with the float32 reciprocal (XLA folds a division by a constant), so
+# the dynamic scale does too.
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def _int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``a (M, K) @ b_t (K, N)`` of int8 matrices in exact int32:
+    ``torch._int_mm``, with ``a`` row-major, ``b_t`` the transpose of a
+    row-major (N, K) matrix, K and N multiples of 8 and, as the card's
+    version asks, M over 16 (short ``a`` gets zero rows)."""
+    m = a.shape[0]
+    if m <= 16:
+        a = F.pad(a, (0, 0, 0, 32 - m))
+    out = torch._int_mm(a, b_t)
+    return out[:m] if m <= 16 else out
+
+
+def prepare_conv_int8(params):
+    """Int8 conv params (``kernel_q`` OHWI, ``kernel_scale``, optional
+    ``bias`` and ``act_scale``) -> ``conv2d_int8``'s, made once: the
+    kernel as the row-major (O, k*k*I) matrix of the product
+    (``matrix_q``; I and then O zero-padded to multiples of 8, as
+    ``torch._int_mm`` asks: zeros add nothing), its tap count and input
+    channels, and the scales and bias in float32."""
+    kq = params["kernel_q"]
+    out_ch, k, _, c = kq.shape
+    if k % 2 == 0:
+        raise ValueError(f"SAME padding needs an odd kernel, got {k}")
+    cin = c + (-c % 8)
+    wq = F.pad(kq, (0, cin - c)).reshape(out_ch, k * k * cin)
+    out = {"matrix_q": F.pad(wq, (0, 0, 0, -out_ch % 8)).contiguous(),
+           "taps": k, "in_channels": c,
+           "kernel_scale": params["kernel_scale"].float()}
+    for key in ("bias", "act_scale"):
+        if key in params:
+            out[key] = params[key].float()
+    return out
+
+
+def conv2d_int8(params, x: torch.Tensor) -> torch.Tensor:
+    """The reference's int8 conv (``_conv2d_int8``), NHWC SAME, stride 1,
+    on ``prepare_conv_int8``'s params.
+
+    The activation scale is ``act_scale`` (static, calibrated) or
+    ``max(max|x|, 1e-6) / 127`` of this input (dynamic, on the device);
+    ``x / act_scale`` (a true division: a product with the reciprocal
+    would move ties) is rounded half to even and clipped to +-127 as
+    int8; the int8 product sums in exact int32; the result is
+    ``float32(sum) * (act_scale * kernel_scale)`` (the two scales
+    multiplied first, as the reference does), plus the bias in float32
+    (fused, one rounding), cast to ``x.dtype``.
+
+    The product is an im2col of the int8 input (the k*k taps in OHWI
+    order, SAME zero padding, the channels zero-padded to a multiple of
+    8 in input and kernel) times the (O, k*k*I) kernel in one
+    ``torch._int_mm``, on the CPU and on the card alike -- a plain
+    product, as the reference leaves its int8 conv to XLA.  No float
+    conv or matmul stands in for it: float32 sums are exact only while
+    127^2 * K < 2^24 (K <= 1040), and cuDNN convs default to TF32.
+    """
+    k, c = params["taps"], params["in_channels"]
+    out_ch = params["kernel_scale"].shape[0]
+    if x.shape[-1] != c:
+        raise ValueError(f"the kernel takes {c} channels, the input has "
+                         f"{x.shape[-1]}")
+    # The input's channels zero-padded as the kernel's, so that K =
+    # k*k*cin is a multiple of 8.
+    cin = c + (-c % 8)
+    static = "act_scale" in params
+    if static:
+        act_scale = params["act_scale"].float()
+    else:
+        act_scale = torch.clamp(x.abs().amax().float(), min=1e-6) * _INV_127
+    # A 1-element (not 0-dim) scale makes the quotient float32 in one
+    # pass over a bf16 input.
+    q = torch.div(x, act_scale.reshape(1)).round_()
+    if static:
+        # A dynamic scale bounds |x / act_scale| by 127 already.
+        q.clamp_(-127, 127)
+    n, h, w, _ = x.shape
+    p = k // 2
+    # The int8 input, SAME-padded and channel-padded with zeros, written
+    # in one cast.
+    xp = torch.zeros((n, h + 2 * p, w + 2 * p, cin), dtype=torch.int8,
+                     device=x.device)
+    xp[:, p:p + h, p:p + w, :c].copy_(q)
+    # im2col: each pixel's k*k taps side by side, moved as 8-byte words
+    # (cin is a multiple of 8).
+    words = xp.view(torch.int64)
+    sn, sh, sw, _ = words.stride()
+    cols = torch.as_strided(words, (n, h, w, k, k, cin // 8),
+                            (sn, sh, sw, sh, sw, 1))
+    cols = cols.reshape(n * h * w, k * k * cin // 8).view(torch.int8)
+    acc = _int_mm(cols, params["matrix_q"].t())
+    if acc.shape[1] != out_ch:
+        acc = acc[:, :out_ch]
+    scale = act_scale * params["kernel_scale"].float()
+    out = torch.empty((n * h * w, out_ch), dtype=x.dtype, device=x.device)
+    if "bias" in params:
+        # One rounding, as the reference's compiled multiply-add (FMA).
+        torch.addcmul(params["bias"].float(), acc.float(), scale, out=out)
+    else:
+        torch.mul(acc, scale, out=out)
+    return out.reshape(n, h, w, out_ch)
+
+
+def deconv_kernel(params) -> torch.Tensor:
+    """A deconv's (I, 4*O) product in float32, dequantized for int8
+    params (``kernel_q * kernel_scale`` per input row, the reference's
+    weight-only dequantization)."""
+    if "kernel_q" in params:
+        return (params["kernel_q"].float()
+                * params["kernel_scale"].float().reshape(-1, 1))
+    return params["kernel"]
+
+
 def conv2d_transpose_2x(params, x: torch.Tensor) -> torch.Tensor:
     """Transposed conv, kernel 2, stride 2, on the stored 1x1 product:
     ``params["kernel"]`` is (I, 4*O) with output channel
     ``(dy*2 + dx)*O + o`` (``export/weights.py`` makes it from the
-    reference's (2, 2, O, I) kernel).  The product, ``depth_to_space(2)``,
-    then the bias, in ``x.dtype``: the taps of a kernel-2 stride-2
-    deconv do not overlap, so this is the deconv exactly."""
-    require_float_kernel(params)
+    reference's (2, 2, O, I) kernel; an int8 one dequantized by
+    ``deconv_kernel``).  The product, ``depth_to_space(2)``, then the
+    bias, in ``x.dtype``: the taps of a kernel-2 stride-2 deconv do not
+    overlap, so this is the deconv exactly."""
+    _record(params, x)
     out = depth_to_space(torch.matmul(x, params["kernel"].to(x.dtype)), 2)
     if "bias" in params:
         out = out + params["bias"].to(x.dtype)

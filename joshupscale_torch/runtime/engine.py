@@ -13,8 +13,10 @@ non-temporal variant (``remove_flow``) has no state.
 
 On a CUDA device a frame is one replayed CUDA graph, the counterpart of
 the reference's jitted step with donated state.  The engine captures it
-once, when it is built: warm-up frames run first on a side stream, on
-scratch copies of the state (so the recurrence does not move), which
+once, when it is built (``capture_graph``, which the pipelined engine
+uses for its two stages too): warm-up frames run first on a side
+stream, on scratch copies of the state (so the recurrence does not
+move), which
 also runs every kernel's one-time host set-up (shared-memory opt-in,
 grid size, the tensor-map encoder's lookup) and fills the per-device
 constant caches of the ops; then ``run_step`` (``model.apply`` and the
@@ -26,7 +28,9 @@ the graph's own pool, which holds the step output and the u8 frame --
 since the res-block kernel's TMA descriptors are encoded from the
 addresses at capture.  A frame copies into the input buffer and replays
 the graph; a failed capture raises, with no eager fallback.  On the CPU
-the same functions run eagerly.
+the same functions run eagerly.  The host side (the frame checks, the
+pinned staging ring, ``process`` / ``process_async`` / ``process_clip``)
+is ``ServingIO``, which the pipelined engine shares.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,24 +52,29 @@ WARMUP_STEPS = 3  # eager frames before the capture (torch's own default)
 
 
 def clone_state(state: Dict[str, Any]) -> Dict[str, Any]:
-    """A copy of a recurrent state (empty stays empty)."""
-    if not state:
-        return {}
-    return {"pre_gen": state["pre_gen"].clone(),
-            "last_frames": [f.clone() for f in state["last_frames"]]}
+    """A copy of a recurrent state, or of one stage's part of it (empty
+    stays empty)."""
+    out = {}
+    if "pre_gen" in state:
+        out["pre_gen"] = state["pre_gen"].clone()
+    if "last_frames" in state:
+        out["last_frames"] = [f.clone() for f in state["last_frames"]]
+    return out
 
 
 def copy_state(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
-    """Copy ``src``'s values into ``dst``'s tensors, in place."""
-    if not dst:
-        return
-    dst["pre_gen"].copy_(src["pre_gen"])
-    for buf, value in zip(dst["last_frames"], src["last_frames"]):
+    """Copy ``src``'s values into ``dst``'s tensors, in place (``dst``'s
+    keys: a whole state or one stage's part)."""
+    if "pre_gen" in dst:
+        dst["pre_gen"].copy_(src["pre_gen"])
+    for buf, value in zip(dst.get("last_frames", ()),
+                          src.get("last_frames", ())):
         buf.copy_(value)
 
 
 def commit_state(state: Dict[str, Any], new_state: Dict[str, Any]) -> None:
-    """Commit ``apply``'s new state into ``state``'s tensors in place.
+    """Commit ``apply``'s (or a stage's) new state into ``state``'s
+    tensors in place.
 
     ``new_state["last_frames"]`` is the new frame followed by the old
     register's first buffers, so the register shifts: oldest buffer
@@ -73,13 +82,36 @@ def commit_state(state: Dict[str, Any], new_state: Dict[str, Any]) -> None:
     the new frame.  A captured graph can replay this; a rotation of the
     Python list could not.
     """
-    if not new_state:
-        return
-    state["pre_gen"].copy_(new_state["pre_gen"])
-    frames = state["last_frames"]
-    for k in range(len(frames) - 1, 0, -1):
-        frames[k].copy_(frames[k - 1])
-    frames[0].copy_(new_state["last_frames"][0])
+    if "pre_gen" in new_state:
+        state["pre_gen"].copy_(new_state["pre_gen"])
+    if "last_frames" in new_state:
+        frames = state["last_frames"]
+        for k in range(len(frames) - 1, 0, -1):
+            frames[k].copy_(frames[k - 1])
+        frames[0].copy_(new_state["last_frames"][0])
+
+
+def capture_graph(device: torch.device, warm_up: Callable[[], Any],
+                  body: Callable[[], Any]):
+    """A CUDA graph of ``body()`` on ``device``: ``warm_up()`` runs
+    ``WARMUP_STEPS`` times eagerly on a side stream first (each kernel's
+    one-time host set-up, the ops' constant caches), then ``body()`` is
+    captured.  Returns ``(graph, body's result, kernel launches recorded
+    into the graph by wrapper name)``; a failed capture raises."""
+    with torch.cuda.device(device):
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side), torch.inference_mode():
+            for _ in range(WARMUP_STEPS):
+                warm_up()
+        main.wait_stream(side)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.inference_mode(), torch.cuda.graph(graph):
+            result = body()
+        after = launch_counts()
+    return graph, result, {k: after[k] - before[k] for k in after}
 
 
 def run_step(model: InferenceModel, params, frame: torch.Tensor,
@@ -90,6 +122,13 @@ def run_step(model: InferenceModel, params, frame: torch.Tensor,
     float frame with ``skip_processing``)."""
     outputs, new_state = model.apply(params, frame, state)
     commit_state(state, new_state)
+    return select_output(model, outputs)
+
+
+def select_output(model: InferenceModel, outputs: Dict[str, Any]):
+    """The step's display tensor among ``apply``'s (or the generator
+    stage's) outputs: s2d with deferred display, else the u8 frame, or
+    the float frame with ``skip_processing``."""
     if _deferred(model):
         return outputs["output_s2d"]
     return outputs.get("output", outputs.get("output_denorm"))
@@ -102,36 +141,27 @@ def _deferred(model: InferenceModel) -> bool:
             and not model.skip_processing and not model.remove_flow)
 
 
-class Engine:
-    """One recurrent-upscale stream (or batch of streams) on a device.
+class ServingIO:
+    """The host side of serving, shared by ``Engine`` and
+    ``parallel.pipeline.PipelinedEngine``: the frame checks, the pinned
+    staging ring that feeds the graph's input buffer, ``process``,
+    ``process_async`` (at most ``max_inflight`` frames in flight) and
+    ``process_clip``.  A subclass calls ``_init_io`` first, makes its
+    input buffer with ``_make_input`` before it captures, sets
+    ``_graph`` once captured, and defines ``_serve``."""
 
-    ``device`` defaults to CUDA and raises when there is none; pass
-    ``device="cpu"`` for the plain PyTorch versions of the kernels.  On
-    CUDA the constructor builds the kernels and captures the frame graph
-    (see the module docstring).  ``max_inflight`` bounds how many
-    ``process_async`` frames may be in flight.
-    """
-
-    def __init__(self, model: InferenceModel, params: Dict[str, Any],
-                 batch_size: int = 1, device: DeviceLike = None,
-                 max_inflight: int = 2) -> None:
-        self.device = resolve_device(device)
+    def _init_io(self, model: InferenceModel, batch_size: int,
+                 in_device: torch.device, out_device: torch.device,
+                 max_inflight: int) -> None:
         self.model = model
         self.batch_size = batch_size
-        self.params = model.prepare_params(params, self.device)
-        self._deferred = _deferred(model)
-        self.state = model.init_state(batch_size, device=self.device)
-        self.frames_processed = 0
-        self.total_process_seconds = 0.0
+        self._in_device = in_device  # holds the graph's input buffer
+        self._out_device = out_device  # makes the display frame
         self._max_inflight = max_inflight
         self._pending: "collections.deque" = collections.deque()
-        self._graph = None
-        # Kernel launches recorded into the graph, by wrapper name.
-        self.graph_launches: Dict[str, int] = {}
-        if self.device.type == "cuda":
-            self._capture()
-
-    # -- geometry ----------------------------------------------------------
+        self._graph = None  # the captured graph(s); None on the CPU
+        self.frames_processed = 0
+        self.total_process_seconds = 0.0
 
     @property
     def input_shape(self):
@@ -143,89 +173,30 @@ class Engine:
         return (self.batch_size, self.model.frame_height * 4,
                 self.model.frame_width * 4, 3)
 
-    # -- the CUDA graph ----------------------------------------------------
-
-    def _capture(self) -> None:
+    def _make_input(self) -> None:
         dtype = torch.float32 if self.model.skip_processing else torch.uint8
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self._in_device):
             # Written by the host and by the graph: made outside
             # inference mode, like the state.
             self._input = torch.zeros(self.input_shape, dtype=dtype,
-                                      device=self.device)
+                                      device=self._in_device)
             # Pinned staging ring for host frames: a buffer is refilled
             # only once its previous copy has completed.
             self._staging = [
                 (torch.empty(self.input_shape, dtype=dtype,
                              pin_memory=True), torch.cuda.Event())
                 for _ in range(self._max_inflight + 1)]
-            self._slot = 0
-            scratch = clone_state(self.state)
-            main = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
-            side.wait_stream(main)
-            with torch.cuda.stream(side), torch.inference_mode():
-                for _ in range(WARMUP_STEPS):
-                    self.display(run_step(self.model, self.params,
-                                          self._input, scratch))
-            main.wait_stream(side)
-            del scratch
-            before = launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.inference_mode(), torch.cuda.graph(graph):
-                self._out = run_step(self.model, self.params, self._input,
-                                     self.state)
-                self._frame = self.display(self._out)
-            after = launch_counts()
-        self.graph_launches = {k: after[k] - before[k] for k in after}
-        self._graph = graph
-
-    def _replay(self, frame: torch.Tensor) -> None:
-        if frame is not self._input:
-            if tuple(frame.shape) != self.input_shape:
-                raise ValueError(f"Invalid frame shape {tuple(frame.shape)}; "
-                                 f"expected {self.input_shape}")
-            self._input.copy_(frame)
-        with torch.cuda.device(self.device):
-            self._graph.replay()
-
-    # -- streaming ---------------------------------------------------------
-
-    def reset(self) -> None:
-        """Restore the initial recurrent state (new stream / seek), in
-        the engine's own buffers: ``init_state``'s values (zeros, or u8
-        127 for a u8 state)."""
-        self._drain()
-        copy_state(self.state, self.model.init_state(self.batch_size,
-                                                     device=self.device))
-
-    def step(self, frame: torch.Tensor) -> torch.Tensor:
-        """One recurrent step on a device frame (N, H, W, 3); returns the
-        step's display tensor (s2d with deferred display) and commits the
-        new state in place.
-
-        On CUDA this replays the frame graph (the display included) and
-        returns the graph's output buffer: it holds this step's output
-        only until the next step or frame of the engine overwrites it.
-        """
-        if self._graph is None:
-            with torch.inference_mode():
-                return run_step(self.model, self.params, frame, self.state)
-        self._replay(frame)
-        return self._out
-
-    def display(self, out: torch.Tensor) -> torch.Tensor:
-        """The display frame(s) of step output(s): d2s+u8 when deferred."""
-        if self._deferred:
-            return d2s_display_u8(out)
-        return out
+        self._slot = 0
 
     def _serve(self, frame: torch.Tensor) -> torch.Tensor:
-        """One step and its display frame (N, 4H, 4W, 3); on CUDA the
-        graph's buffer, valid until the next step."""
-        if self._graph is None:
-            return self.display(self.step(frame))
-        self._replay(frame)
-        return self._frame
+        """One step on a device frame and its display frame (N, 4H, 4W,
+        3); with a graph, the graph's buffer, valid until the next
+        step."""
+        raise NotImplementedError
+
+    def _before_input(self) -> None:
+        """Enqueued on the input device's stream before a frame
+        overwrites the input buffer: what must finish first."""
 
     def process_async(self, frame: np.ndarray) -> torch.Tensor:
         """Enqueue one frame ((H, W, 3) or (N, H, W, 3) u8) and return its
@@ -304,14 +275,15 @@ class Engine:
             raise ValueError(f"Invalid frame shape {frame.shape}; expected "
                              f"{self.input_shape}")
         if self._graph is None:
-            return torch.tensor(frame)
+            return torch.tensor(frame, device=self._in_device)
         # Through the next pinned staging buffer into the graph's input
         # buffer, without blocking the host.
         buf, copied = self._staging[self._slot]
         self._slot = (self._slot + 1) % len(self._staging)
         copied.synchronize()
         buf.numpy()[...] = frame
-        with torch.cuda.device(self.device):
+        with torch.cuda.device(self._in_device):
+            self._before_input()
             self._input.copy_(buf, non_blocking=True)
             copied.record()
         return self._input
@@ -322,7 +294,7 @@ class Engine:
         if self._graph is None:
             return None
         event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        event.record(torch.cuda.current_stream(self._out_device))
         return event
 
     @staticmethod
@@ -333,6 +305,91 @@ class Engine:
     def _drain(self) -> None:
         while self._pending:
             self._wait(self._pending.popleft())
+
+
+class Engine(ServingIO):
+    """One recurrent-upscale stream (or batch of streams) on a device.
+
+    ``device`` defaults to CUDA and raises when there is none; pass
+    ``device="cpu"`` for the plain PyTorch versions of the kernels.  On
+    CUDA the constructor builds the kernels and captures the frame graph
+    (see the module docstring).  ``max_inflight`` bounds how many
+    ``process_async`` frames may be in flight.
+    """
+
+    def __init__(self, model: InferenceModel, params: Dict[str, Any],
+                 batch_size: int = 1, device: DeviceLike = None,
+                 max_inflight: int = 2) -> None:
+        self.device = resolve_device(device)
+        self._init_io(model, batch_size, self.device, self.device,
+                      max_inflight)
+        self.params = model.prepare_params(params, self.device)
+        self._deferred = _deferred(model)
+        self.state = model.init_state(batch_size, device=self.device)
+        # Kernel launches recorded into the graph, by wrapper name.
+        self.graph_launches: Dict[str, int] = {}
+        if self.device.type == "cuda":
+            self._capture()
+
+    # -- the CUDA graph ----------------------------------------------------
+
+    def _capture(self) -> None:
+        self._make_input()
+        scratch = clone_state(self.state)
+
+        def frame(state):
+            out = run_step(self.model, self.params, self._input, state)
+            return out, self.display(out)
+
+        self._graph, (self._out, self._frame), self.graph_launches = \
+            capture_graph(self.device, lambda: frame(scratch),
+                          lambda: frame(self.state))
+
+    def _replay(self, frame: torch.Tensor) -> None:
+        if frame is not self._input:
+            if tuple(frame.shape) != self.input_shape:
+                raise ValueError(f"Invalid frame shape {tuple(frame.shape)}; "
+                                 f"expected {self.input_shape}")
+            self._input.copy_(frame)
+        with torch.cuda.device(self.device):
+            self._graph.replay()
+
+    # -- streaming ---------------------------------------------------------
+
+    def reset(self) -> None:
+        """Restore the initial recurrent state (new stream / seek), in
+        the engine's own buffers: ``init_state``'s values (zeros, or u8
+        127 for a u8 state)."""
+        self._drain()
+        copy_state(self.state, self.model.init_state(self.batch_size,
+                                                     device=self.device))
+
+    def step(self, frame: torch.Tensor) -> torch.Tensor:
+        """One recurrent step on a device frame (N, H, W, 3); returns the
+        step's display tensor (s2d with deferred display) and commits the
+        new state in place.
+
+        On CUDA this replays the frame graph (the display included) and
+        returns the graph's output buffer: it holds this step's output
+        only until the next step or frame of the engine overwrites it.
+        """
+        if self._graph is None:
+            with torch.inference_mode():
+                return run_step(self.model, self.params, frame, self.state)
+        self._replay(frame)
+        return self._out
+
+    def display(self, out: torch.Tensor) -> torch.Tensor:
+        """The display frame(s) of step output(s): d2s+u8 when deferred."""
+        if self._deferred:
+            return d2s_display_u8(out)
+        return out
+
+    def _serve(self, frame: torch.Tensor) -> torch.Tensor:
+        if self._graph is None:
+            return self.display(self.step(frame))
+        self._replay(frame)
+        return self._frame
 
     # -- profiling ---------------------------------------------------------
 

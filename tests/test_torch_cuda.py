@@ -387,3 +387,108 @@ def test_engine_step_does_not_sync(gen, cuda):
         engine.display(engine.step(frame))
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("m,k,n", [(129600, 576, 64), (129600, 504, 64),
+                                   (2040, 2304, 256), (10, 64, 32)])
+def test_int8_product_exact_on_card(cuda, m, k, n):
+    """The int8 conv's product (``nn.layers._int_mm``) on the card at the
+    main path's shapes (a full frame at C = 64, the generator's first
+    conv at K = 9 x 56, the autoencoder's 256-channel conv at K = 2304,
+    whose sums pass 2^24) and a short one (M <= 16 gets zero rows):
+    equal to the CPU's int32 product."""
+    from joshupscale_torch.nn.layers import _int_mm
+
+    g = torch.Generator().manual_seed(m + k)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+    b = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    want = _int_mm(a, b.t())
+    got = _int_mm(a.to(cuda), b.to(cuda).t())
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def _int8_params(built, frames=None, device=None):
+    from joshupscale_torch.export.quantize import (
+        calibrate,
+        quantize_params_int8,
+    )
+
+    ranges = None
+    if frames is not None:
+        ranges = calibrate(built.obj, built.params, frames[:, None],
+                           device=device)
+    return quantize_params_int8(built.params, ranges=ranges)
+
+
+_INT8_CASES = [("quality", False), ("quality", True), ("ps2", False)]
+
+
+@pytest.mark.parametrize("arch,calibrated", _INT8_CASES)
+def test_int8_engine_on_card(gen, cuda, arch, calibrated):
+    """The int8 tier through the engine on the card: every res block
+    quantized (0 K1, 1 K2 in the frame graph), a step makes no
+    synchronising call, replays equal eager steps bit for bit across a
+    ``reset()``, and the frames stay within 2 u8 steps of the CPU's
+    (bf16 rounded at other places upstream of a conv can move one
+    quantization level)."""
+    config = (_quality_config("bfloat16") if arch == "quality"
+              else _ps2_config("bfloat16"))
+    built = create_models(config, seed=6)["inference"]
+    h, w = built.obj.frame_height, built.obj.frame_width
+    frames = gen.integers(0, 256, (6, h, w, 3)).astype(np.uint8)
+    params = _int8_params(built, frames[:3] if calibrated else None, cuda)
+    engine = Engine(built.obj, params)
+    assert engine.graph_launches == _graph_launches(0, 1)
+    on_cpu = Engine(built.obj, params, device="cpu")
+    model = engine.model
+    state = model.init_state(device=cuda)
+    for i, f in enumerate(frames):
+        if i == 3:
+            engine.reset()
+            on_cpu.reset()
+            state = model.init_state(device=cuda)
+        got = engine.process(f)
+        assert np.abs(got.astype(np.int32)
+                      - on_cpu.process(f).astype(np.int32)).max() <= 2
+        with torch.inference_mode():
+            x = torch.from_numpy(f[None]).to(cuda)
+            ref = engine.display(run_step(model, engine.params, x, state))
+        np.testing.assert_array_equal(got, ref.cpu().numpy()[0])
+    x = torch.from_numpy(frames[0][None]).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.display(engine.step(x))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_sharded_and_pipelined_engines_on_card(gen, cuda):
+    """On one card: ``ShardedEngine(devices=['cuda:0'],
+    streams_per_device=2)`` equals ``Engine(batch_size=2)`` bit for bit
+    (one engine of two streams, K1 at N = 2), and ``PipelinedEngine`` on
+    ('cuda:0', 'cuda:0') -- two frame graphs and the payload copy --
+    equals ``Engine`` bit for bit, streamed, as a clip and async."""
+    from joshupscale_torch.parallel import PipelinedEngine, ShardedEngine
+
+    built = create_models(_quality_config("bfloat16"), seed=7)["inference"]
+    frames = gen.integers(0, 256, (4, 2, 24, 40, 3)).astype(np.uint8)
+    sharded = ShardedEngine(built.obj, built.params, devices=["cuda:0"],
+                            streams_per_device=2)
+    batched = Engine(built.obj, built.params, batch_size=2)
+    assert batched.graph_launches == _graph_launches(2 * 4, 1)
+    for f in frames:
+        np.testing.assert_array_equal(sharded.process(f), batched.process(f))
+    piped = PipelinedEngine(built.obj, built.params,
+                            devices=("cuda:0", "cuda:0"))
+    single = Engine(built.obj, built.params)
+    want = np.stack([single.process(f) for f in frames[:, 0]])
+    np.testing.assert_array_equal(
+        np.stack([piped.process(f) for f in frames[:, 0]]), want)
+    piped.reset()
+    np.testing.assert_array_equal(piped.process_clip(frames[:, 0]), want)
+    piped.reset()
+    outs = [piped.process_async(f) for f in frames[:, 0]]
+    np.testing.assert_array_equal(
+        np.stack([o.cpu().numpy()[0] for o in outs]), want)

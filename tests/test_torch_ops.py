@@ -134,7 +134,24 @@ def test_batch_norm_and_activations(rng):
         tlayers.get_activation("gelu")
 
 
-def test_int8_params_raise():
-    with pytest.raises(NotImplementedError):
-        tlayers.conv2d({"kernel_q": torch.zeros(4, 3, 3, 4)},
-                       torch.zeros(1, 4, 4, 4))
+def test_int8_params_raise(rng):
+    """Int8 params (``kernel_q``, prepared once by
+    ``prepare_conv_int8``) run the reference's int8 conv: bit for bit
+    against its compiled form in f32 (more cases in
+    ``test_torch_quantize``); an input whose channels the kernel does
+    not take raises."""
+    import jax
+
+    from joshupscale_tpu.export.quantize import quantize_params_int8
+
+    x = rng.standard_normal((1, 5, 6, 4)).astype(np.float32)
+    jp = quantize_params_int8(
+        {"kernel": jnp.asarray(rng.standard_normal((3, 3, 4, 8)),
+                               jnp.float32)}, min_elements=0)
+    tp = tlayers.prepare_conv_int8(
+        {"kernel_q": _t(np.asarray(jp["kernel_q"]).transpose(3, 0, 1, 2)),
+         "kernel_scale": _t(np.asarray(jp["kernel_scale"]))})
+    ref = np.asarray(jax.jit(jlayers.conv2d)(jp, jnp.asarray(x)))
+    np.testing.assert_array_equal(tlayers.conv2d(tp, _t(x)).numpy(), ref)
+    with pytest.raises(ValueError):
+        tlayers.conv2d(tp, torch.zeros(1, 4, 4, 5))

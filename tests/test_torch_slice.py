@@ -249,7 +249,8 @@ def test_port_imports_no_jax():
             " joshupscale_torch.kernels.probes,"
             " joshupscale_torch.tools.conv_probe,"
             " joshupscale_torch.runtime.stream, joshupscale_torch.runtime.cli,"
-            " joshupscale_torch.runtime.native_glue\n"
+            " joshupscale_torch.runtime.native_glue,"
+            " joshupscale_torch.export.quantize, joshupscale_torch.parallel\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"
             "assert not bad, bad\n")
