@@ -38,7 +38,17 @@ Multi-stream serving: ``ShardedEngine`` on the card with 2 and 4 streams
 (K1 at N = 2 and 4; checked against ``Engine(batch_size=2)`` and each
 stream against the single-stream engine, frames/s beside it), ``PipelinedEngine`` with both stages
 on the card (two frame graphs; checked against ``Engine``, latency and
-``process_async`` throughput beside it), and K1 timed at N = 2.  Then it
+``process_async`` throughput beside it), and K1 timed at N = 2.  FRVSR
+training follows (``phase_train``): the models of
+``configs/frvsr_quality.yaml`` at full width (flow 64x10, generator
+64x24; batch 4, T = 10, LR crop 32) built by the training CLI's
+builder, ``fit`` for 2 epochs x 3 steps with validation and
+checkpoints, one float32 step held against the CPU (loss and every
+gradient), steps timed in float32 and bf16 (forward, backward,
+optimizer; peak memory), no kernel launched by a train step; then the
+trained params exported as a serving package (270x480, bf16) and served
+through ``create_runtime`` + ``Engine.process`` with the counts set to 0
+(68 K1 + 1 K2 a step), checked as the serving paths are.  Then it
 drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
@@ -67,7 +77,9 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -723,7 +735,11 @@ def kernel_group(name: str) -> str:
     if "i16832gemm" in name or "imma" in low:
         return "int8 product (_int_mm)"
     if "reduce_kernel" in name:
-        return "reductions (absmax)"
+        return "reductions (absmax, BN statistics)"
+    if "indexfunc" in low or "index_add" in low:
+        return "index_add (s2d warp backward)"
+    if "multi_tensor_apply" in low:
+        return "foreach (Adam, BN merge)"
     if "d2s_display" in name:
         return "K2 d2s_display_u8"
     if "max_pool" in low:
@@ -1129,6 +1145,347 @@ def phase_profiled(torch, paths, ps2, device, profile_dir, batched):
                       engine, frames, device)
 
 
+# FRVSR training: the models section of configs/frvsr_quality.yaml at
+# full width, with zero_init_tail as configs/frvsr_synth.yaml sets it,
+# and the configs' trainer shape (batch 4, T = 10, LR crop 32).
+TRAIN_MODELS = {
+    "flow": {"name": "flow-resnet", "num_inputs": 4, "num_filters": 64,
+             "num_res_blocks": 10, "zero_init_tail": True},
+    "generator": {"name": "generator-resnet", "num_filters": 64,
+                  "num_res_blocks": 24, "zero_init_tail": True},
+    "inference": {"name": "inference", "flow": {"model": "flow"},
+                  "generator": {"model": "generator"},
+                  "skip_processing": True, "frame_height": 32,
+                  "frame_width": 32},
+    "frvsr": {"name": "frvsr", "flow": {"model": "flow"},
+              "generator": {"model": "generator"},
+              "inference": {"model": "inference"}, "learning_rate": 0.0005},
+}
+TRAIN_BATCH, TRAIN_T, TRAIN_CROP = 4, 10, 32
+TRAIN_EPOCHS, TRAIN_STEPS = 2, 3  # fit: epochs x steps, then validation
+TRAIN_TIMED = 7  # timed steps per dtype, after 2 warm-up steps
+# Card vs CPU, one float32 step (TF32 off in the step), written before
+# the first run: the loss within 1e-4 relative, each gradient within
+# 1e-3 relative L2 error.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+
+
+def train_config(out_dir: str, compute_dtype: str) -> dict:
+    models = json.loads(json.dumps(TRAIN_MODELS))
+    models["frvsr"]["compute_dtype"] = compute_dtype
+    return {
+        "models": models,
+        "train": {"model": "frvsr", "batch_size": TRAIN_BATCH,
+                  "epochs": TRAIN_EPOCHS, "steps_per_epoch": TRAIN_STEPS,
+                  "checkpoint_dir": os.path.join(out_dir, "ckpt"),
+                  "tensorboard": False},
+        "export": {"dir": os.path.join(out_dir, "export"),
+                   "model": "inference",
+                   "overrides": {"frame_height": H, "frame_width": W,
+                                 "compute_dtype": "bfloat16"}},
+    }
+
+
+def train_batches(n: int, seed: int) -> list:
+    """``n`` u8 batches {"input": (B, T, 32, 32, 3), "target": (B, T, 128,
+    128, 3)}: smooth patterns moving at a random velocity plus noise,
+    driven past 0 and 255 (saturated pixels), the LR the 4x4 mean of the
+    HR."""
+    rng = np.random.default_rng(seed)
+    hs = 4 * TRAIN_CROP
+    yy, xx = np.mgrid[0:hs, 0:hs].astype(np.float32)
+    t = np.arange(TRAIN_T, dtype=np.float32)[None, :, None, None, None]
+    out = []
+    for _ in range(n):
+        phase = rng.uniform(0, 2 * np.pi, (TRAIN_BATCH, 1, 1, 1, 3))
+        vy, vx = (rng.uniform(-2, 2, (TRAIN_BATCH, 1, 1, 1, 1))
+                  for _ in range(2))
+        img = (np.sin((xx[..., None] + vx * t) * 0.05 + phase)
+               * np.cos((yy[..., None] + vy * t) * 0.07 - phase))
+        img = 127.5 + 170 * img + rng.standard_normal(img.shape) * 6
+        hr = np.clip(img, 0, 255)
+        lr = hr.reshape(TRAIN_BATCH, TRAIN_T, TRAIN_CROP, 4, TRAIN_CROP, 4,
+                        3).mean((3, 5))
+        out.append({"input": lr.astype(np.uint8),
+                    "target": hr.astype(np.uint8)})
+    return out
+
+
+def time_train_steps(torch, setup, batch, seed, base_bytes):
+    """ms of an optimizer step (CUDA events around the step function)
+    and of its forward, backward and optimizer parts (events between
+    them), medians of ``TRAIN_TIMED`` steps after 2 warm-up steps, and
+    the peak device memory of those steps above ``base_bytes`` (what was
+    allocated before ``setup`` was built: the phases before keep their
+    engines alive)."""
+    from joshupscale_torch.training.trainer import (
+        apply_gradients,
+        exact_float32,
+        grad_leaves,
+        gradients,
+    )
+
+    trainer, state = setup.built.obj, setup.state
+    gen = torch.Generator(setup.device).manual_seed(seed)
+    noise = trainer.draw_noise(batch["input"].shape, gen, setup.device)
+    exact = setup.step.exact_float32
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def split_step():
+        e = [ev() for _ in range(4)]
+        with exact_float32(exact):
+            e[0].record()
+            loss, aux = trainer.loss(state.params, batch, noise)
+            e[1].record()
+            grads = gradients(loss, grad_leaves(state.params))
+            e[2].record()
+            apply_gradients(setup.optimizer, state, grads, aux)
+            e[3].record()
+        return e
+
+    for _ in range(2):
+        split_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts, whole = [], []
+    for _ in range(TRAIN_TIMED):
+        e = split_step()
+        a, b = ev(), ev()
+        a.record()
+        setup.step(state, batch, noise=noise)
+        b.record()
+        torch.cuda.synchronize()
+        parts.append([e[i].elapsed_time(e[i + 1]) for i in range(3)])
+        whole.append(a.elapsed_time(b))
+    peak = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+    med = np.median(np.asarray(parts), axis=0)
+    # Synchronising calls in one step (informational): each stalls the
+    # host until the card catches up.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            setup.step(state, batch, noise=noise)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return {"step_ms": float(np.median(whole)), "syncs_per_step": syncs,
+            "step_spread_ms": [float(min(whole)), float(max(whole))],
+            "forward_ms": float(med[0]), "backward_ms": float(med[1]),
+            "optimizer_ms": float(med[2]), "peak_gib": float(peak)}
+
+
+def train_card_vs_cpu(torch, setup, batch_np, seed):
+    """One float32 step's loss and every gradient on the card against the
+    CPU, from the same initial params, batch and noise."""
+    from joshupscale_torch.training.trainer import (
+        device_normalize,
+        exact_float32,
+        init_train_state,
+        loss_and_grads,
+    )
+
+    trainer = setup.built.obj
+    noise = trainer.draw_noise(batch_np["input"].shape,
+                               torch.Generator().manual_seed(seed), "cpu")
+    def run(dev):
+        params = init_train_state(setup.built.params, setup.optimizer,
+                                  dev).params
+        t0 = time.perf_counter()
+        with exact_float32():
+            loss, _, grads = loss_and_grads(
+                trainer, params, device_normalize(batch_np, dev),
+                {k: v.to(dev) for k, v in noise.items()})
+        return (loss.item(), {p: g.detach().cpu().numpy()
+                              for p, g in grads.items()},
+                time.perf_counter() - t0)
+
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = (
+        run(setup.device), run(torch.device("cpu")))
+    rel = {p: float(np.linalg.norm(g_card[p] - g_cpu[p])
+                    / max(np.linalg.norm(g_cpu[p]), 1e-30)) for p in g_cpu}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"train f32 card vs CPU (one step, {len(rel)} gradients; card "
+        f"{s_card:.1f} s, CPU {s_cpu:.1f} s with the first call): loss "
+        f"{l_card:.7f} vs {l_cpu:.7f} (relative {loss_rel:.2e}, bound "
+        f"{TRAIN_LOSS_RTOL:g}); worst gradient relative L2 error "
+        f"{rel[worst]:.2e} at {worst} (bound {TRAIN_GRAD_RTOL:g}), median "
+        f"{float(np.median(list(rel.values()))):.2e}")
+    if loss_rel > TRAIN_LOSS_RTOL or rel[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError("train: the card's f32 step disagrees with "
+                             "the CPU's beyond the bound")
+    return {"loss_rel": loss_rel, "worst_grad_rel": rel[worst],
+            "worst_grad": worst}
+
+
+def phase_train(torch, seed, device, out_dir):
+    """FRVSR training at full width (``TRAIN_MODELS``: flow 64x10,
+    generator 64x24; batch 4, T = 10, LR crop 32, u8 batches with
+    saturated pixels) from the CLI's builder (``build_training``):
+    ``fit`` for 2 epochs x 3 steps with a validation batch into a
+    checkpoint directory (losses finite, the step counted, moving
+    statistics moved, best and latest written, latest loaded back); one
+    float32 step on the card against the CPU; steps timed in float32
+    and bf16 (forward / backward / optimizer, peak memory); then the
+    trained params exported through the CLI's ``_export`` (270x480,
+    bf16) and served through ``create_runtime`` + ``Engine.process``
+    with the launch counts set to 0 first: 68 K1 + 1 K2 a step, replays
+    equal to eager steps, frames against the same package on the CPU.
+    The training step itself launches no K1 or K2 (the reference trains
+    on XLA convs; the port on library convs under autograd)."""
+    import itertools
+
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
+    from joshupscale_torch.training.cli import _export, build_training
+    from joshupscale_torch.export.weights import to_flat_numpy
+    from joshupscale_torch.training.trainer import (
+        device_normalize,
+        fit,
+        load_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    batches = train_batches(TRAIN_EPOCHS * TRAIN_STEPS + 1, seed)
+    sat = float(np.mean([(b["input"] == 0).mean() + (b["input"] == 255).mean()
+                         for b in batches]))
+    log(f"train: {len(batches)} u8 batches of {batches[0]['input'].shape} "
+        f"-> {batches[0]['target'].shape}; share of saturated LR values "
+        f"{sat:.4f}")
+    if sat == 0:
+        raise AssertionError("train: no saturated pixel in the batches")
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    res = {}
+
+    # fit, from the CLI's builder, float32.
+    config = train_config(out_dir, "float32")
+    setup = build_training(config, seed, device)
+    ckpt = config["train"]["checkpoint_dir"]
+    state, history = fit(
+        setup.step, setup.state, itertools.cycle(batches[:-1]),
+        epochs=TRAIN_EPOCHS, steps_per_epoch=TRAIN_STEPS,
+        rng=torch.Generator(device).manual_seed(seed),
+        val_fn=setup.val_fn, val_data=[batches[-1]], checkpoint_dir=ckpt,
+        log_fn=lambda m: log(f"train fit: {m}"))
+    losses = [e[k] for e in history for k in ("train_loss", "val_loss")]
+    flat = to_flat_numpy(state.params)
+    last = TRAIN_MODELS["generator"]["num_res_blocks"]
+    moved = {p: float(np.abs(flat[p] - (0.0 if p.endswith("mean") else 1.0))
+                      .max()) for p in ("flow.bn_1.moving_mean",
+                                        f"generator.block_{last}.bn_2."
+                                        "moving_variance")}
+    loaded = load_checkpoint(os.path.join(ckpt, "latest.npz"), state.tree())
+    same = all(np.array_equal(v, flat[p]) for p, v in
+               to_flat_numpy(loaded["params"]).items())
+    log(f"train fit: {len(history)} epochs, step {state.step}, losses "
+        f"{['%.5f' % x for x in losses]}; moving statistics moved by "
+        f"{moved}; best.npz {os.path.exists(os.path.join(ckpt, 'best.npz'))}"
+        f", latest.npz loads back equal: {same}")
+    if (len(history) != TRAIN_EPOCHS or not np.all(np.isfinite(losses))
+            or state.step != TRAIN_EPOCHS * TRAIN_STEPS
+            or min(moved.values()) == 0 or not same
+            or not os.path.exists(os.path.join(ckpt, "best.npz"))):
+        raise AssertionError("train: fit did not run as expected")
+    res["fit_losses"] = losses
+
+    res["card_vs_cpu"] = train_card_vs_cpu(torch, setup, batches[0], seed)
+
+    dev_batch = device_normalize(batches[0], device)
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        timed = build_training(train_config(out_dir, dtype), seed, device)
+        res[dtype] = time_train_steps(torch, timed, dev_batch, seed, base)
+        del timed
+        torch.cuda.empty_cache()
+
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    log(f"train: launches over fit, the card-vs-CPU step and the timed "
+        f"steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}")
+    if k1 or k2 or p1 or p2:
+        raise AssertionError("train: a kernel launched in a train step")
+
+    # Serve what was trained.
+    _export(config["export"], config, setup.models, setup.built, state)
+    package = os.path.join(config["export"]["dir"], "package")
+    frames = frames_for(FRAMES, seed)
+    for k in kernels:
+        k.launches = 0
+    engine = create_runtime(package, device=device)
+    outs = [engine.process(f) for f in frames]
+    torch.cuda.synchronize()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    steps = WARMUP_STEPS + 1
+    log(f"trained export: create_runtime + {len(frames)} frames through "
+        f"Engine.process: K1 launches={k1} ({k1 / steps:g}/step), K2 "
+        f"launches={k2} ({k2 / steps:g}/step), P1/P2 {p1}/{p2}; in the "
+        f"graph: {engine.graph_launches}")
+    if (k1 != K1_PER_FRAME * steps or k2 != steps or p1 or p2
+            or engine.graph_launches["resblock_conv3x3"] != K1_PER_FRAME
+            or engine.graph_launches["d2s_display_u8"] != 1):
+        raise AssertionError("trained export: expected 68 K1 + 1 K2 a step")
+    inside = float(np.mean([((o > 0) & (o < 255)).mean() for o in outs]))
+    if any(o.shape != (4 * H, 4 * W, 3) for o in outs) or inside < 0.5:
+        raise AssertionError("trained export: bad or clipped output")
+    cpu = create_runtime(package, device="cpu")
+    for i in range(2):
+        card_vs_cpu("trained export", f"frame {i}", outs[i],
+                    cpu.process(frames[i]))
+    check_replay(torch, "trained export", engine, frames, device)
+    res["export_launches"] = (k1, k2)
+    res["engine"] = (engine, frames)
+    log(f"train: phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def profile_train(torch, seed, device, step_ms):
+    """Device time of a full-width train step by kernel group, from a
+    profile of 2 steps after 2 warm-up steps, in float32 and bf16; the
+    idle share against the unprofiled step median (``step_ms``)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from joshupscale_torch.training.cli import build_training
+    from joshupscale_torch.training.trainer import device_normalize
+
+    batch_np = train_batches(1, seed)[0]
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        setup = build_training(train_config("unused", dtype), seed, device)
+        batch = device_normalize(batch_np, device)
+        noise = setup.built.obj.draw_noise(
+            batch["input"].shape, torch.Generator(device).manual_seed(seed),
+            device)
+        for _ in range(2):
+            setup.step(setup.state, batch, noise=noise)
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                setup.step(setup.state, batch, noise=noise)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            events = device_events(prof, os.path.join(d, "trace.json"))
+        groups = {}
+        for e in events:
+            key = kernel_group(e["name"])
+            groups[key] = groups.get(key, 0.0) + e["dur"] / 2e3
+        busy = sum(groups.values())
+        idle = 1 - busy / step_ms[dtype]
+        log(f"train {dtype}: {len(events) / 2:.0f} device ops a step, "
+            f"{busy:.2f} ms of device time against the {step_ms[dtype]:.2f}"
+            f" ms step (idle share {idle:.3f}): " + "; ".join(
+                f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                                  key=lambda kv: -kv[1])))
+        out[dtype] = {"ops": len(events) / 2, "busy_ms": busy,
+                      "idle_share": idle, "groups": groups}
+        del setup
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
     """The second path: the conv probe tool's run over every variant
     (each held against its plain version at full shape, then timed), its
@@ -1274,10 +1631,16 @@ def main() -> int:
     batched = {}
     par = phase_parallel(torch, args.seed, device, batched)
     k1_n2, lib_n2 = time_k1(torch, device, 64, n=2)
+    with tempfile.TemporaryDirectory() as train_dir:
+        train = phase_train(torch, args.seed, device, train_dir)
+    paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
     after = phase_profiled(torch, paths, ps2, device, args.profile, batched)
+    train_prof = profile_train(
+        torch, args.seed, device,
+        {d: train[d]["step_ms"] for d in ("float32", "bfloat16")})
     paths.clear()
     batched.clear()
 
@@ -1296,7 +1659,8 @@ def main() -> int:
                   for name in ("int8 quality", "int8 quality calibrated",
                                "int8 ps2_style")},
                **{name: (par[name]["k1"], par[name]["k2"])
-                  for name in ("sharded x2", "sharded x4", "pipelined")}}
+                  for name in ("sharded x2", "sharded x4", "pipelined")},
+               "trained export": train["export_launches"]}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
                                                k1_n2["conv_2"])
     kernels = [
@@ -1385,6 +1749,18 @@ def main() -> int:
         + f" frames/s at max_inflight 1, 2, 3; benchmark scan_diff "
         f"{runtime['scan_diff']['frame_ms']:.3f} ms/frame, per_dispatch "
         f"p50 {runtime['per_dispatch']['p50'] * 1e3:.3f} ms on {card}")
+    for dtype in ("float32", "bfloat16"):
+        t = train[dtype]
+        log(f"train {dtype} (flow 64x10, generator 64x24, batch "
+            f"{TRAIN_BATCH}, T = {TRAIN_T}, crop {TRAIN_CROP}): optimizer "
+            f"step median {t['step_ms']:.2f} ms (spread "
+            f"{t['step_spread_ms'][0]:.2f}-{t['step_spread_ms'][1]:.2f}), "
+            f"forward {t['forward_ms']:.2f} + backward {t['backward_ms']:.2f}"
+            f" + optimizer {t['optimizer_ms']:.2f} ms, peak memory "
+            f"{t['peak_gib']:.2f} GiB, {t['syncs_per_step']} synchronising "
+            f"calls a step, device busy {train_prof[dtype]['busy_ms']:.2f} "
+            f"ms (idle share {train_prof[dtype]['idle_share']:.3f}) on "
+            f"{card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

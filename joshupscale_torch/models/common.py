@@ -16,6 +16,14 @@ the compute dtype after the conv, and so does every conv of the
 calibration route: the prepare functions take the net's dotted
 ``path`` there, and a conv given a path is never folded and carries the
 path for the sweep's recorder (``nn.layers.recording``).
+
+Training runs the raw params instead (``*_train`` functions): the
+gradients must reach ``kernel``, ``gamma`` and ``beta``, so nothing is
+folded while batch norm takes batch statistics, and ``Mutables``
+collects the moving-statistic and fade-counter updates of a forward
+pass (the reference's ``Mutables``).  With ``Mutables(False)`` the
+training form runs inference batch norm (a float conv folded as the
+reference's ``conv_bn`` folds it): the validation route.
 """
 
 from __future__ import annotations
@@ -26,13 +34,79 @@ import torch
 from joshupscale_torch.kernels.resblock import resblock_conv3x3
 from joshupscale_torch.nn.layers import (
     activation_spec,
+    batch_norm,
     batch_norm_init,
+    batch_norm_train,
     conv2d,
     conv2d_init,
     fold_bn,
     get_activation,
+    get_train_activation,
     prepare_conv_int8,
 )
+
+
+class Mutables:
+    """Collects the batch-norm moving-statistic updates and fade-counter
+    increments of one training forward pass: ``updates`` maps a dotted
+    path (``prefix`` + the layer's path) to its new, detached values,
+    which the trainer writes back into the params after the step
+    (``training.trainer.merge_bn_updates``).  ``training=False`` is
+    inference batch norm and records nothing.
+
+    ``fade_offset``: how many generator calls preceded this one in the
+    step (the reference's FadeInLayer adds 1 to its counter per call).
+    """
+
+    def __init__(self, training: bool = False, prefix: str = "",
+                 updates=None, fade_offset: int = 0):
+        self.training = training
+        self.prefix = prefix
+        self.updates = {} if updates is None else updates
+        self.fade_offset = fade_offset
+
+    def scoped(self, prefix: str) -> "Mutables":
+        """A view over the same updates under ``prefix.``."""
+        return Mutables(self.training, f"{self.prefix}{prefix}.",
+                        self.updates, self.fade_offset)
+
+    def bn(self, params, path: str, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return batch_norm(params, x)
+        y, upd = batch_norm_train(params, x)
+        self.updates[self.prefix + path] = upd
+        return y
+
+    def fade_in(self, params, path: str, x: torch.Tensor) -> torch.Tensor:
+        """``x * min(counter / max(period, 1), 1)`` with the counter
+        advanced by ``fade_offset``; records ``counter + 1`` when
+        training.  The scale is state, so no gradient reaches it."""
+        counter = params["counter"].detach() + self.fade_offset
+        scale = torch.clamp(
+            counter.float() / torch.clamp(params["period"].detach(),
+                                          min=1.0), max=1.0)
+        y = x * scale.to(x.dtype)
+        if self.training:
+            self.updates[self.prefix + path] = {"counter": counter + 1}
+        return y
+
+
+def merge_scan_bn_updates(mut: Mutables, prefix: str, step_updates):
+    """Fold the updates of the recurrence's generator calls (one dict a
+    step, paths without ``prefix``) into ``mut.updates`` under
+    ``prefix``: each moving statistic as the mean over the steps (every
+    step updated from the same running value, so the mean is one
+    momentum step with the steps' mean batch statistic), overwriting the
+    first frame's (whose warp input is noise); a fade counter as the
+    last step's.  The reference's ``merge_scan_bn_updates``."""
+    for path, upd in step_updates[0].items():
+        if "counter" in upd:
+            mut.updates[prefix + path] = {
+                "counter": step_updates[-1][path]["counter"]}
+            continue
+        mut.updates[prefix + path] = {
+            stat: torch.stack([u[path][stat] for u in step_updates]).mean(0)
+            for stat in upd}
 
 
 def fade_scale(fade_params) -> torch.Tensor:
@@ -204,3 +278,37 @@ def res_blocks_apply(params, names, x: torch.Tensor,
     for name in names:
         out = res_block_apply(params[name], out, activation)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training form (raw params)
+
+
+def conv_bn_train(conv_params, bn_params, x: torch.Tensor, mut: Mutables,
+                  path: str) -> torch.Tensor:
+    """conv then batch norm on raw params: batch statistics when
+    training, else the conv folded with inference batch norm (the
+    reference's ``conv_bn``)."""
+    if mut.training:
+        return mut.bn(bn_params, path, conv2d(conv_params, x))
+    return conv2d(fold_conv_bn(conv_params, bn_params, x.dtype), x)
+
+
+def res_block_train(params, x: torch.Tensor, activation, mut: Mutables,
+                    path: str) -> torch.Tensor:
+    """conv-bn-act-conv-bn(-fade)-add-act on raw params."""
+    act = get_train_activation(activation)
+    out = act(conv_bn_train(params["conv_1"], params["bn_1"], x, mut,
+                            f"{path}.bn_1"))
+    out = conv_bn_train(params["conv_2"], params["bn_2"], out, mut,
+                        f"{path}.bn_2")
+    if "fade" in params:
+        out = mut.fade_in(params["fade"], f"{path}.fade", out)
+    return act(out + x)
+
+
+def res_blocks_train(params, names, x: torch.Tensor, activation,
+                     mut: Mutables) -> torch.Tensor:
+    for name in names:
+        x = res_block_train(params[name], x, activation, mut, name)
+    return x

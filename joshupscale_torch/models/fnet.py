@@ -7,6 +7,7 @@ output is the 32-channel head, depth_to_space(4)'d unless
 ``s2d_output``.  Each ``*_apply`` takes the serving params that its
 ``prepare_*`` makes once from the raw ones (float or int8, see
 ``models/common.py``; ``path=...`` is the calibration route).
+``*_train`` run the raw params in training form (``Mutables``).
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from joshupscale_torch.models.common import (
+    Mutables,
     batch_norm_apply,
+    conv_bn_train,
     conv_bn_apply,
     prepare_bn,
     prepare_conv,
@@ -26,12 +29,14 @@ from joshupscale_torch.models.common import (
     prepare_res_blocks,
     res_block_init,
     res_blocks_apply,
+    res_blocks_train,
 )
 from joshupscale_torch.nn.layers import (
     batch_norm_init,
     conv2d,
     conv2d_init,
     get_activation,
+    get_train_activation,
 )
 from joshupscale_torch.ops.resize import upscale_bilinear
 from joshupscale_torch.ops.space_depth import depth_to_space
@@ -83,6 +88,22 @@ def flow_resnet_apply(params, frames: List[torch.Tensor], activation="relu",
     if s2d_output:
         return out
     return depth_to_space(out, 4)
+
+
+def flow_resnet_train(params, frames: List[torch.Tensor], mut: Mutables,
+                      activation="relu",
+                      num_res_blocks: Optional[int] = None) -> torch.Tensor:
+    """``flow_resnet_apply`` on raw params in training form: frames ->
+    (N, 4H, 4W, 2) flow."""
+    act = get_train_activation(activation)
+    if num_res_blocks is None:
+        num_res_blocks = sum(1 for k in params if k.startswith("block_"))
+    out = act(conv_bn_train(params["conv_1"], params["bn_1"],
+                            torch.cat(frames, dim=-1), mut, "bn_1"))
+    out = res_blocks_train(
+        params, [f"block_{i + 1}" for i in range(num_res_blocks)], out,
+        activation, mut)
+    return depth_to_space(conv2d(params["conv_2"], out), 4)
 
 
 # ---------------------------------------------------------------------------
@@ -181,3 +202,26 @@ def flow_autoencoder_apply(params, frames: List[torch.Tensor],
     if s2d_output:
         return out
     return depth_to_space(out, 4)
+
+
+def flow_autoencoder_train(params, frames: List[torch.Tensor],
+                           mut: Mutables,
+                           activation="relu") -> torch.Tensor:
+    """``flow_autoencoder_apply`` on raw params in training form."""
+    act = get_train_activation(activation)
+    block_count = sum(1 for k in params if k.startswith("block_")) // 2
+    out = torch.cat(frames, dim=-1)
+    for i in range(2 * block_count):
+        name = f"block_{i + 1}"
+        p = params[name]
+        for j in ("1", "2"):
+            out = act(mut.bn(p["bn_" + j], f"{name}.bn_{j}",
+                             conv2d(p["conv_" + j], out)))
+        if i < block_count:
+            out = _max_pool_2x(out)
+        else:
+            out = upscale_bilinear(out.float(), 2).to(out.dtype)
+    if "conv_1" in params:
+        out = act(mut.bn(params["bn_1"], "bn_1",
+                         conv2d(params["conv_1"], out)))
+    return depth_to_space(conv2d(params["conv_2"], out), 4)

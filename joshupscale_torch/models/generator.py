@@ -12,6 +12,8 @@ first conv sees the frame alone.  ``generator_resnet_apply`` takes the
 serving params that ``prepare_generator_resnet`` makes once from the raw
 ones: folds, the tiled bn_2, the block-diagonal deconv2 product and the
 bilinear phase kernel are constants of the step, built ahead of it.
+``generator_resnet_train`` runs the raw params in training form (the
+pixel tail, as the reference trains).
 """
 
 from __future__ import annotations
@@ -22,11 +24,14 @@ import numpy as np
 import torch
 
 from joshupscale_torch.models.common import (
+    Mutables,
     conv_bn_apply,
+    conv_bn_train,
     prepare_conv_bn,
     prepare_res_blocks,
     res_block_init,
     res_blocks_apply,
+    res_blocks_train,
 )
 from joshupscale_torch.nn.layers import (
     batch_norm_init,
@@ -35,9 +40,15 @@ from joshupscale_torch.nn.layers import (
     deconv_kernel,
     fold_bn,
     get_activation,
+    get_train_activation,
     glorot_uniform,
 )
-from joshupscale_torch.ops.resize import phase_kernel, phase_upscale
+from joshupscale_torch.ops.image import clip
+from joshupscale_torch.ops.resize import (
+    phase_kernel,
+    phase_upscale,
+    upscale_bilinear,
+)
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 
 
@@ -238,3 +249,30 @@ def _tail_pixel(params, frame: torch.Tensor, out: torch.Tensor,
     x = torch.tanh(conv2d_transpose_2x(params["conv_trans_2"], x))
     upscaled = depth_to_space(phase_upscale(frame, params["skip"]), 4)
     return torch.clamp(upscaled + x, -0.5, 0.5)
+
+
+def generator_resnet_train(params, frame: torch.Tensor,
+                           pre_warp: Optional[torch.Tensor], mut: Mutables,
+                           activation="relu") -> torch.Tensor:
+    """``generator_resnet_apply`` on raw params in training form, pixel
+    tail: (frame, warped previous HR output) -> (N, 4H, 4W, 3); bn_2
+    takes its statistics on the 2x grid after deconv1, and the final
+    clip passes the reference's gradient at its bounds.
+    ``pre_warp=None``: the frame alone (conv_1 cut to its 3 frame
+    channels)."""
+    act = get_train_activation(activation)
+    num_blocks = sum(1 for k in params if k.startswith("block_"))
+    conv_1 = params["conv_1"]
+    if pre_warp is None:
+        inp = frame
+        conv_1 = {**conv_1, "kernel": conv_1["kernel"][..., :3]}
+    else:
+        inp = torch.cat([frame, space_to_depth(pre_warp, 4)], dim=-1)
+    out = act(conv_bn_train(conv_1, params["bn_1"], inp, mut, "bn_1"))
+    out = res_blocks_train(
+        params, [f"block_{i + 1}" for i in range(num_blocks)], out,
+        activation, mut)
+    out = conv2d_transpose_2x(params["conv_trans_1"], out)
+    out = act(mut.bn(params["bn_2"], "bn_2", out))
+    out = torch.tanh(conv2d_transpose_2x(params["conv_trans_2"], out))
+    return clip(upscale_bilinear(frame, 4) + out, -0.5, 0.5)

@@ -18,7 +18,8 @@ and the generator's tail run on the HR grid.  ``remove_flow`` is the
 non-temporal variant: no flow net, no state, the generator on the frame
 alone.  ``apply`` is functional like the reference; the engine keeps the
 state in fixed device tensors and commits ``new_state`` into them in
-place.
+place.  ``apply_train`` is the step on raw params in training form
+(pixel path, ``Mutables``), which the single-step FRVSR trainer runs.
 """
 
 from __future__ import annotations
@@ -32,7 +33,12 @@ import torch.nn.functional as F
 from joshupscale_torch import DeviceLike, resolve_device
 from joshupscale_torch.models.fnet import prepare_flow_resnet
 from joshupscale_torch.models.generator import prepare_generator_resnet
-from joshupscale_torch.ops.image import brightness, postprocess, preprocess
+from joshupscale_torch.ops.image import (
+    brightness,
+    clip,
+    postprocess,
+    preprocess,
+)
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 from joshupscale_torch.ops.temporal import frame_moving_avg
 from joshupscale_torch.ops.warp import dense_image_warp, dense_image_warp_s2d
@@ -49,7 +55,9 @@ class InferenceModel:
     bound nets; they take the serving params ``prepare_params`` makes
     (``flow_prepare`` prepares the flow net's).  ``compute_dtype`` is
     the networks' activation dtype.  ``frame_moving_avg`` is a
-    ``FrameMovingAvgConfig`` or None.
+    ``FrameMovingAvgConfig`` or None.  ``flow_train(params, frames,
+    mut)`` and ``generator_train(params, frame, pre_warp, mut)`` are the
+    nets' training forms, on raw params (``apply_train``).
     """
 
     flow_apply: Optional[Callable[..., torch.Tensor]]
@@ -68,6 +76,8 @@ class InferenceModel:
     remove_flow: bool = False
     u8_state: bool = False
     flow_prepare: Callable[..., Any] = prepare_flow_resnet
+    flow_train: Optional[Callable[..., torch.Tensor]] = None
+    generator_train: Optional[Callable[..., torch.Tensor]] = None
 
     def __post_init__(self):
         if not self.remove_flow and self.num_flow_frames < 2:
@@ -268,6 +278,51 @@ class InferenceModel:
         elif not self.deferred_display:
             outputs["output"] = postprocess(depth_to_space(out, 4))
         return outputs, {"pre_gen": new_pre_gen}
+
+    def apply_train(self, params, cur_frame: torch.Tensor, state: State,
+                    mut) -> Tuple[Dict[str, Any], State]:
+        """One recurrent step on raw params in training form (batch norm
+        as ``mut`` says, a ``models.common.Mutables``), always on the
+        pixel path, as the reference's ``apply`` runs under training
+        Mutables.  ``state["pre_gen"]`` is the (N, 4H, 4W, 3) previous
+        output.  Returns float32 ``output_denorm``, ``output_raw``
+        (brightness taken back out), ``pre_warp`` and ``flow`` (the
+        last two absent under ``remove_flow``) and the new state."""
+        pre = self._preprocess(cur_frame)
+        if self.remove_flow:
+            out = self.generator_train(params["generator"], pre, None,
+                                       mut.scoped("generator")).float()
+            return {"output_denorm": out, "output_raw": out}, state
+        cdt = self.compute_dtype
+        cur_pad = pre
+        bright = None
+        if self.normalize_brightness:
+            bright = brightness(pre)
+            cur_pad = cur_pad - bright
+        cur_pad = self._pad(cur_pad)
+        last_frames = [f.to(cdt) for f in state["last_frames"]]
+        flow = self._unpad_flow(self.flow_train(
+            params["flow"], [cur_pad] + last_frames, mut.scoped("flow")), 4)
+        pre_warp = dense_image_warp(state["pre_gen"].to(cdt), flow)
+        if bright is not None:
+            pre_warp = pre_warp + bright
+        if self.output_flow:
+            out = clip(pre_warp, -0.5, 0.5)
+        else:
+            out = self.generator_train(params["generator"], pre, pre_warp,
+                                       mut.scoped("generator"))
+            if self.frame_moving_avg is not None:
+                out = frame_moving_avg(out, pre_warp, self.frame_moving_avg)
+        output_raw = out if bright is None else out - bright
+        outputs = {"output_denorm": out.float(),
+                   "output_raw": output_raw.float(),
+                   "pre_warp": pre_warp.float(), "flow": flow.float()}
+        new_state = {
+            "pre_gen": output_raw.to(state["pre_gen"].dtype),
+            "last_frames": [cur_pad.to(state["last_frames"][0].dtype)]
+            + list(state["last_frames"][:-1]),
+        }
+        return outputs, new_state
 
     def _hr_outputs(self, out: torch.Tensor) -> Dict[str, Any]:
         """The outputs of an HR (pixel-form) display frame."""

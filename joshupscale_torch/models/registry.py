@@ -1,13 +1,15 @@
-"""Config-driven model registry (serving subset).
+"""Config-driven model registry.
 
 Port of ``create_models`` from ``joshupscale_tpu/models/registry.py`` for
-the factories ``flow-resnet``, ``flow-autoencoder``, ``generator-resnet``
-and ``inference``.
+the factories ``flow-resnet``, ``flow-autoencoder``, ``generator-resnet``,
+``inference`` and the FRVSR trainers ``frvsr`` and ``frvsr-single``.
 Entries name a factory; values of the form ``{"model": <name>}``
 cross-reference other entries; ``weights`` loads a flat ``.npz``
-(optionally a dotted ``prefix`` subtree of it).  Initialization is
-seeded numpy glorot-uniform: the port's own random values, not the
-reference's -- carry weights across with ``export/weights.py``.
+(optionally a dotted ``prefix`` subtree of it); ``freeze`` (true, or a
+list of dotted paths) marks params the trainers must not move.
+Initialization is seeded numpy glorot-uniform: the port's own random
+values, not the reference's -- carry weights across with
+``export/weights.py``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,20 @@ class BuiltModel:
     # Raw params -> serving params (a net's ``prepare_*``), where the
     # net has one.
     prepare: Optional[Callable[..., Any]] = None
+    # The net's training form on raw params (``*_train``).
+    train_apply: Optional[Callable[..., Any]] = None
+    trainable: bool = True
+    frozen_paths: tuple = ()
+
+
+def _sub_frozen(prefix: str, sub: Optional[BuiltModel]) -> tuple:
+    """A sub-model's freeze markers re-rooted under ``prefix``, so that
+    ``freeze`` on a sub-model's entry reaches its trainer's mask."""
+    if sub is None:
+        return ()
+    if not sub.trainable:
+        return (prefix,)
+    return tuple(f"{prefix}.{p}" for p in sub.frozen_paths)
 
 
 DTYPES = {
@@ -53,9 +69,13 @@ def _build_flow_resnet(rng, *, num_inputs=4, num_filters=64,
         num_res_blocks=num_res_blocks, zero_init_tail=zero_init_tail)
     apply = functools.partial(fnet.flow_resnet_apply, activation=activation,
                               num_res_blocks=num_res_blocks)
+    train_apply = functools.partial(
+        fnet.flow_resnet_train, activation=activation,
+        num_res_blocks=num_res_blocks)
     return BuiltModel(kind="flow-resnet", params=params, apply=apply,
                       config={"num_inputs": num_inputs},
-                      prepare=fnet.prepare_flow_resnet)
+                      prepare=fnet.prepare_flow_resnet,
+                      train_apply=train_apply)
 
 
 def _build_flow_autoencoder(rng, *, num_inputs=4, filters=None,
@@ -67,7 +87,10 @@ def _build_flow_autoencoder(rng, *, num_inputs=4, filters=None,
                               activation=activation)
     return BuiltModel(kind="flow-autoencoder", params=params, apply=apply,
                       config={"num_inputs": num_inputs},
-                      prepare=fnet.prepare_flow_autoencoder)
+                      prepare=fnet.prepare_flow_autoencoder,
+                      train_apply=functools.partial(
+                          fnet.flow_autoencoder_train,
+                          activation=activation))
 
 
 def _build_generator_resnet(rng, *, num_filters=64, num_res_blocks=24,
@@ -79,7 +102,10 @@ def _build_generator_resnet(rng, *, num_filters=64, num_res_blocks=24,
         fade_in_period=fade_in_period, zero_init_tail=zero_init_tail)
     apply = functools.partial(generator.generator_resnet_apply,
                               activation=activation)
-    return BuiltModel(kind="generator-resnet", params=params, apply=apply)
+    return BuiltModel(kind="generator-resnet", params=params, apply=apply,
+                      train_apply=functools.partial(
+                          generator.generator_resnet_train,
+                          activation=activation))
 
 
 def _build_inference(rng, *, generator_model: BuiltModel,
@@ -115,12 +141,63 @@ def _build_inference(rng, *, generator_model: BuiltModel,
         u8_state=u8_state,
         flow_prepare=(flow_model.prepare if use_flow
                       else fnet.prepare_flow_resnet),
+        flow_train=flow_model.train_apply if use_flow else None,
+        generator_train=generator_model.train_apply,
     )
     params = {"generator": generator_model.params}
     if flow_model is not None:
         params["flow"] = flow_model.params
     return BuiltModel(kind="inference", params=params, obj=model,
-                      apply=model.apply)
+                      apply=model.apply,
+                      frozen_paths=(_sub_frozen("flow", flow_model)
+                                    + _sub_frozen("generator",
+                                                  generator_model)))
+
+
+def _build_frvsr(rng, *, flow_model: BuiltModel,
+                 generator_model: BuiltModel,
+                 inference_model: Optional[BuiltModel] = None,
+                 learning_rate=0.0005, normalize_brightness=False,
+                 regularization=None, compute_dtype=torch.float32,
+                 s2d_train_warp=False, s2d_scan_warp=True, **_):
+    """FRVSR trainer over a flow net and a generator."""
+    from joshupscale_torch.training.frvsr import FRVSRTrainer
+
+    trainer = FRVSRTrainer(
+        flow_apply=flow_model.train_apply,
+        generator_apply=generator_model.train_apply,
+        num_flow_frames=flow_model.config.get("num_inputs", 4),
+        normalize_brightness=normalize_brightness,
+        compute_dtype=compute_dtype,
+        s2d_train_warp=s2d_train_warp,
+        s2d_scan_warp=s2d_scan_warp,
+    )
+    params = {"flow": flow_model.params,
+              "generator": generator_model.params}
+    return BuiltModel(
+        kind="frvsr", params=params, obj=trainer,
+        frozen_paths=(_sub_frozen("flow", flow_model)
+                      + _sub_frozen("generator", generator_model)),
+        config={"learning_rate": learning_rate,
+                "regularization": regularization,
+                "inference": inference_model})
+
+
+def _build_frvsr_single(rng, *, inference_model: BuiltModel,
+                        learning_rate=0.0005, regularization=None, **_):
+    """Single-step FRVSR trainer over an inference model, which it runs
+    as a pixel-state twin (the trainer feeds HR state by hand)."""
+    from joshupscale_torch.training.frvsr import FRVSRSingleTrainer
+
+    model = dataclasses.replace(inference_model.obj, s2d_mode=False)
+    return BuiltModel(
+        kind="frvsr-single", params=inference_model.params,
+        obj=FRVSRSingleTrainer(model=model),
+        trainable=inference_model.trainable,
+        frozen_paths=inference_model.frozen_paths,
+        config={"learning_rate": learning_rate,
+                "regularization": regularization,
+                "inference": inference_model})
 
 
 MODELS: Dict[str, Callable[..., BuiltModel]] = {
@@ -128,16 +205,14 @@ MODELS: Dict[str, Callable[..., BuiltModel]] = {
     "flow-autoencoder": _build_flow_autoencoder,
     "generator-resnet": _build_generator_resnet,
     "inference": _build_inference,
+    "frvsr": _build_frvsr,
+    "frvsr-single": _build_frvsr_single,
 }
 
-# Factories of the reference that later slices bring.
-_LATER_MODELS = {
-    "discriminator": "the training slice",
-    "vgg": "the training slice",
-    "frvsr": "the training slice",
-    "frvsr-single": "the training slice",
-    "gan": "the training slice",
-}
+# Factories of the reference that a later slice brings.
+_GAN_SLICE = "the GAN training slice (ROADMAP 14b)"
+_LATER_MODELS = {"discriminator": _GAN_SLICE, "vgg": _GAN_SLICE,
+                 "gan": _GAN_SLICE}
 
 
 def _check_same_structure(template, loaded, path=""):
@@ -190,13 +265,12 @@ def create_models(config: Dict[str, Any],
         args = dict(config[name])
         model_type = args.pop("name")
         weights = args.pop("weights", None)
-        # Trainability markers do not change what serving computes.
-        args.pop("freeze", None)
+        freeze = args.pop("freeze", None)
         for meta in ("copy_weights", "copy_variables"):
             if args.pop(meta, None) is not None:
                 raise NotImplementedError(
-                    f"{meta} is not ported yet; it waits for the "
-                    f"training slice")
+                    f"{meta} is not ported yet; it waits for "
+                    f"{_GAN_SLICE}")
         if isinstance(args.get("compute_dtype"), str):
             args["compute_dtype"] = DTYPES[args["compute_dtype"]]
         for arg, val in list(args.items()):
@@ -211,6 +285,11 @@ def create_models(config: Dict[str, Any],
             raise ValueError(f"Unknown model type {model_type}")
         rng = np.random.default_rng([seed, seeds[name]])
         model = MODELS[model_type](rng, **args)
+        if isinstance(freeze, list):
+            # Merged with the sub-models' freezes the factory composed.
+            model.frozen_paths = tuple(model.frozen_paths) + tuple(freeze)
+        elif freeze is not None:
+            model.trainable = not freeze
         if weights is not None:
             if isinstance(weights, dict):
                 loaded = load_params_npz(weights["path"],

@@ -1,11 +1,13 @@
-"""Functional conv / batch-norm layers, inference subset.
+"""Functional conv / batch-norm layers.
 
-Port of ``joshupscale_tpu/nn/layers.py``.  Activations are NHWC.  Conv
-kernels are stored OHWI ``(out, kh, kw, in)``: ``kernel.permute(0, 3,
-1, 2)`` is the OIHW view ``F.conv2d`` takes (channels-last strides, no
-copy), and the res-block kernel (``kernels/resblock.py``) reads OHWI
-directly.  Kernel-2 stride-2 deconvs are stored as their (I, 4*O) 1x1
-product.  ``export/weights.py`` converts the reference's kernels.
+Port of ``joshupscale_tpu/nn/layers.py``: the inference layers, and
+batch norm in training form (``batch_norm_train``).  Activations are
+NHWC.  Conv kernels are stored OHWI ``(out, kh, kw, in)``:
+``kernel.permute(0, 3, 1, 2)`` is the OIHW view ``F.conv2d`` takes
+(channels-last strides, no copy), and the res-block kernel
+(``kernels/resblock.py``) reads OHWI directly.  Kernel-2 stride-2
+deconvs are stored as their (I, 4*O) 1x1 product.
+``export/weights.py`` converts the reference's kernels.
 
 Int8-quantized layers (``export/quantize.py``) hold ``kernel_q`` (int8,
 same layout), ``kernel_scale`` (float32, per leading axis: a conv's
@@ -32,6 +34,7 @@ import torch.nn.functional as F
 from joshupscale_torch.ops.space_depth import depth_to_space
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
 def glorot_uniform(rng: np.random.Generator, shape, fan_in: int,
@@ -253,6 +256,30 @@ def batch_norm(params, x: torch.Tensor, eps: float = BN_EPS) -> torch.Tensor:
     return x * inv.to(x.dtype) + offset.to(x.dtype)
 
 
+def batch_norm_train(params, x: torch.Tensor, eps: float = BN_EPS):
+    """Training batch norm (Keras semantics): ``(y, new_stats)``.
+
+    The batch mean and the population variance are taken in float32
+    over every axis but the channels, also for a bf16 ``x``; the output
+    ``(x - mean) * gamma / sqrt(var + eps) + beta`` is computed in
+    ``x.dtype``, as the reference's is.  ``new_stats`` holds the moving
+    statistics after one momentum step (``BN_MOMENTUM``), detached: they
+    are state, not part of the loss.
+    """
+    dims = tuple(range(x.ndim - 1))
+    var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+    inv = (params["gamma"] * torch.rsqrt(var + eps)).to(x.dtype)
+    y = (x - mean.to(x.dtype)) * inv + params["beta"].to(x.dtype)
+    m = BN_MOMENTUM
+    with torch.no_grad():
+        new_stats = {
+            "moving_mean": params["moving_mean"] * m + mean * (1 - m),
+            "moving_variance": params["moving_variance"] * m
+            + var * (1 - m),
+        }
+    return y, new_stats
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
 
@@ -287,3 +314,14 @@ def get_activation(activation) -> Callable[[torch.Tensor], torch.Tensor]:
     if name == "relu":
         return relu
     return lambda x: leaky_relu(x, alpha)
+
+
+def get_train_activation(
+        activation) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The activation with the reference's gradient at 0: relu's is 0
+    in both packages, but ``jax.nn.leaky_relu`` is ``where(x >= 0, x,
+    alpha * x)``, slope 1 at 0 where ``F.leaky_relu`` gives alpha."""
+    name, alpha = activation_spec(activation)
+    if name == "relu":
+        return relu
+    return lambda x: torch.where(x >= 0, x, x * alpha)

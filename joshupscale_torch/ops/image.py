@@ -15,6 +15,37 @@ import torch
 BGR_LUMA = (0.1140, 0.5870, 0.2989)
 
 
+class _Clip(torch.autograd.Function):
+    """``clamp`` whose gradient is 1 inside the bounds, 0.5 on them and
+    0 outside: the gradient of ``jnp.clip``, which is
+    ``minimum(maximum(x, lo), hi)`` and splits a tie's gradient evenly;
+    ``torch.clamp`` passes 1 on a bound."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, lo, hi)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        inside = ((x > lo) & (x < hi)).to(grad.dtype)
+        on_bound = ((x == lo) | (x == hi)).to(grad.dtype)
+        return grad * (inside + 0.5 * on_bound), None, None
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x`` clipped to ``[lo, hi]``, with the reference's gradient (0.5
+    where ``x`` equals a bound).  Training hits the bounds exactly: u8
+    pixels 0 and 255 normalize to -0.5 and 0.5, and a zero flow puts
+    every warp weight at 0.  Without grad it is ``torch.clamp``."""
+    if not x.requires_grad:
+        return torch.clamp(x, lo, hi)
+    return _Clip.apply(x, lo, hi)
+
+
 def preprocess(x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """uint8 [0, 255] -> float [-0.5, 0.5]."""
     return x.to(dtype) / 255.0 - 0.5

@@ -1,9 +1,9 @@
 """Dense image warp, pixel and space-to-depth forms, tfa edge-clamp
 semantics.
 
-Port of ``dense_image_warp`` and ``dense_image_warp_s2d`` from
-``joshupscale_tpu/ops/warp.py`` (the s2d form with
-``gather_mode="promise"`` semantics, float or u8 table):
+Port of ``dense_image_warp``, ``dense_image_warp_s2d`` and
+``dense_image_warp_via_s2d`` from ``joshupscale_tpu/ops/warp.py`` (the
+s2d form on a float or u8 table):
 
     output[b, y, x, c] = bilinear_sample(image, (y - flow_y, x - flow_x))
 
@@ -13,6 +13,12 @@ edge pixel.  Index math stays in float32: bfloat16 cannot represent
 pixel coordinates above 256 exactly.  ``grid_sample`` is not used: its
 normalised coordinates do not give this grid.
 
+Both forms are differentiable in the image and the flow, as the
+reference's training warps are.  The weights' clip passes the
+reference's gradient at its bounds (``ops.image.clip``), and the s2d
+gather of a table that requires grad sums the table's gradient in
+float32 (``_SegsumGather``, the reference's ``_segsum_gather``).
+
 Plain torch ops for now (one row gather, then the bilinear blend); a
 Hopper kernel for the s2d gather + combine is queued in ROADMAP.md.
 """
@@ -21,12 +27,42 @@ from __future__ import annotations
 
 import torch
 
+from joshupscale_torch.ops.image import clip
+from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
+
 
 def _floor_and_alpha(q: torch.Tensor, size: int):
     """Clamped floor index (int64) and interpolation weight (float32) of
     float32 query coordinates along an axis of ``size``."""
     f = torch.clamp(torch.floor(q), 0.0, float(size - 2))
-    return f.to(torch.int64), torch.clamp(q - f, 0.0, 1.0)
+    return f.to(torch.int64), clip(q - f, 0.0, 1.0)
+
+
+class _SegsumGather(torch.autograd.Function):
+    """Row gather ``table[idx]`` whose table gradient is summed in
+    float32 and cast to the table's dtype at the end, as the
+    reference's ``_segsum_gather`` (``joshupscale_tpu/ops/warp.py``)
+    sums its one-hot product: an ``index_add_`` straight into a bf16
+    gradient would round every partial sum.  The indices are in bounds
+    by construction (the warp clamps its floor corners), so the
+    reference's fill-mode clip changes nothing.  On the card the adds
+    are atomic, so the summation order, and a float32 sum's last bits,
+    may change from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.table_shape = table.shape
+        ctx.table_dtype = table.dtype
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros(ctx.table_shape, dtype=torch.float32,
+                          device=grad.device)
+        acc.index_add_(0, idx, grad.float())
+        return acc.to(ctx.table_dtype), None
 
 
 def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -138,7 +174,11 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     if n > 1:
         lin = lin + (torch.arange(n, device=dev) * (hb * wb)).view(
             n, 1, 1, 1)
-    rows = table.reshape(n * hb * wb, lanes)[lin.reshape(-1)]
+    flat = table.reshape(n * hb * wb, lanes)
+    if flat.requires_grad:
+        rows = _SegsumGather.apply(flat, lin.reshape(-1))
+    else:
+        rows = flat[lin.reshape(-1)]
     # Corner-major copy: each sub-position's c lanes become one dense
     # (N, Hb, Wb, 16, c) slab, so the combine below multiplies dense
     # tensors instead of strided lane slices (same values, same order).
@@ -163,3 +203,19 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     if u8:
         acc = (acc.float() * (1.0 / 255.0) - 0.5).to(out_dtype)
     return acc.reshape(n, hb, wb, p2 * c)
+
+
+def dense_image_warp_via_s2d(image: torch.Tensor, flow: torch.Tensor,
+                             block: int = 4) -> torch.Tensor:
+    """A pixel-form warp computed in s2d form: ``space_to_depth`` of the
+    image and the flow, ``dense_image_warp_s2d``, ``depth_to_space``.
+    The same values as ``dense_image_warp``, differentiable in both
+    inputs; the training recurrence's warp (the reference's
+    ``s2d_scan_warp``).  H or W not divisible by ``block`` falls back to
+    the pixel form, as in the reference."""
+    _, h, w, _ = image.shape
+    if h % block or w % block:
+        return dense_image_warp(image, flow)
+    out = dense_image_warp_s2d(space_to_depth(image, block),
+                               space_to_depth(flow, block), block)
+    return depth_to_space(out, block)

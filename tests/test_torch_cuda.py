@@ -492,3 +492,123 @@ def test_sharded_and_pipelined_engines_on_card(gen, cuda):
     outs = [piped.process_async(f) for f in frames[:, 0]]
     np.testing.assert_array_equal(
         np.stack([o.cpu().numpy()[0] for o in outs]), want)
+
+
+# ---------------------------------------------------------------------------
+# FRVSR training on the card (no kernel of the port: library convs under
+# autograd, the s2d warp's backward in plain PyTorch)
+
+
+def _train_setup(device, compute_dtype="float32", filters=16):
+    from joshupscale_torch.training import init_train_state, make_optimizer
+
+    config = {
+        "flow": {"name": "flow-resnet", "num_inputs": 4,
+                 "num_filters": filters, "num_res_blocks": 1},
+        "generator": {"name": "generator-resnet", "num_filters": filters,
+                      "num_res_blocks": 2},
+        "frvsr": {"name": "frvsr", "flow": {"model": "flow"},
+                  "generator": {"model": "generator"},
+                  "compute_dtype": compute_dtype},
+    }
+    built = create_models(config)["frvsr"]
+    opt = make_optimizer(1e-3)
+    return built, opt, init_train_state(built.params, opt, device)
+
+
+def _train_batch(gen, device, b=2, t=4, crop=8):
+    batch = {"input": gen.integers(0, 256, (b, t, crop, crop, 3),
+                                   dtype=np.uint8),
+             "target": gen.integers(0, 256, (b, t, 4 * crop, 4 * crop, 3),
+                                    dtype=np.uint8)}
+    batch["input"][:, :, :2] = 255
+    batch["target"][:, :, -4:] = 0
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def test_frvsr_step_on_card_matches_cpu(gen, cuda):
+    """One float32 step's loss and gradients on the card against the
+    CPU (TF32 off in the step): loss within 1e-5 relative, each
+    gradient within 1e-4 relative L2 error."""
+    from joshupscale_torch.training import init_train_state
+    from joshupscale_torch.training.trainer import (
+        exact_float32,
+        loss_and_grads,
+    )
+
+    built, opt, _ = _train_setup(cuda)
+    batch = _train_batch(gen, "cpu")
+    noise = built.obj.draw_noise(batch["input"].shape,
+                                 torch.Generator().manual_seed(0), "cpu")
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        params = init_train_state(built.params, opt, dev).params
+        with exact_float32():
+            loss, _, grads = loss_and_grads(
+                built.obj, params, {k: v.to(dev) for k, v in batch.items()},
+                {k: v.to(dev) for k, v in noise.items()})
+        out.append((loss.item(), {p: g.cpu() for p, g in grads.items()}))
+    (l_card, g_card), (l_cpu, g_cpu) = out
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    for p, ref in g_cpu.items():
+        err = float((g_card[p] - ref).norm() / ref.norm().clamp_min(1e-30))
+        assert err <= 1e-4, (p, err)
+
+
+def test_s2d_warp_backward_on_card_matches_cpu_bf16(gen, cuda):
+    """The training warp through the s2d table in bf16.  The image's
+    gradient is summed in float32 by atomic adds on the card (the order
+    changes from run to run) and rounded once to bf16, so it is within
+    one bf16 step (2^-7 relative) of the CPU's everywhere, also where a
+    far flow sends every query of a region to one edge block (hundreds
+    of adds into its rows; a bf16 sum would round each).  The output and
+    the flow's gradient are elementwise: within 1% relative L2."""
+    from joshupscale_torch.ops.warp import dense_image_warp_via_s2d
+
+    image = torch.from_numpy(gen.standard_normal((2, 32, 48, 3)).astype(
+        np.float32) * 0.3)
+    flow = (gen.standard_normal((2, 32, 48, 2)) * 3).astype(np.float32)
+    flow[:, 16:] = 60.0
+    flow = torch.from_numpy(flow)
+    cot = torch.from_numpy(gen.standard_normal((2, 32, 48, 3)).astype(
+        np.float32))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        img = image.to(dev, torch.bfloat16).requires_grad_()
+        fl = flow.to(dev, torch.bfloat16).requires_grad_()
+        out = dense_image_warp_via_s2d(img, fl)
+        (out.float() * cot.to(dev)).sum().backward()
+        assert img.grad.dtype == torch.bfloat16
+        grads.append((out.float().cpu(), fl.grad.float().cpu(),
+                      img.grad.float().cpu()))
+    (out, g_flow, g_img), (out_ref, g_flow_ref, g_img_ref) = grads
+    for got, ref in ((out, out_ref), (g_flow, g_flow_ref)):
+        assert float((got - ref).norm() / ref.norm()) < 1e-2
+    assert bool(((g_img - g_img_ref).abs()
+                 <= 2 ** -7 * g_img_ref.abs() + 1e-6).all())
+
+
+def test_bf16_training_loss_falls(gen, cuda):
+    """Four bf16 steps on one batch: finite losses that fall, moving
+    statistics updated, params and moments float32."""
+    from joshupscale_torch.training import build_frvsr_step
+
+    built, opt, state = _train_setup(cuda, "bfloat16")
+    step = build_frvsr_step(built.obj, opt)
+    batch = _train_batch(gen, cuda)
+    rng = torch.Generator(cuda).manual_seed(0)
+    losses = []
+    for _ in range(4):
+        noise = built.obj.draw_noise(batch["input"].shape,
+                                     torch.Generator(cuda).manual_seed(1),
+                                     cuda)
+        state, metrics = step(state, batch, rng=rng, noise=noise)
+        losses.append(metrics["loss"].item())
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert state.step == 4
+    bn = state.params["flow"]["bn_1"]
+    assert bn["moving_mean"].abs().max() > 0
+    assert state.params["generator"]["conv_1"]["kernel"].dtype == \
+        torch.float32
+    assert state.opt_state["mu"]["generator"]["conv_1"]["kernel"].dtype == \
+        torch.float32

@@ -242,7 +242,7 @@ def test_unported_model_types_raise():
 
 def test_port_imports_no_jax():
     """The port and chip_smoke.py import neither jax nor the JAX package
-    (nor yaml outside the package files)."""
+    (nor yaml outside the package files and the training CLI)."""
     code = ("import sys, joshupscale_torch, joshupscale_torch.runtime.engine,"
             " joshupscale_torch.export.package, joshupscale_torch.kernels."
             "resblock, joshupscale_torch.kernels.display,"
@@ -250,7 +250,9 @@ def test_port_imports_no_jax():
             " joshupscale_torch.tools.conv_probe,"
             " joshupscale_torch.runtime.stream, joshupscale_torch.runtime.cli,"
             " joshupscale_torch.runtime.native_glue,"
-            " joshupscale_torch.export.quantize, joshupscale_torch.parallel\n"
+            " joshupscale_torch.export.quantize, joshupscale_torch.parallel,"
+            " joshupscale_torch.training, joshupscale_torch.training.cli,"
+            " joshupscale_torch.data\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"
             "assert not bad, bad\n")
@@ -268,4 +270,5 @@ def test_port_imports_no_jax():
             assert top not in ("jax", "jaxlib", "joshupscale_tpu"), (
                 path, line)
             if top == "yaml":
-                assert path.name == "package.py", (path, line)
+                assert (path.name == "package.py" or path.parts[-2:]
+                        == ("training", "cli.py")), (path, line)
