@@ -1211,6 +1211,20 @@ def train_batches(n: int, seed: int) -> list:
     return out
 
 
+def count_syncs(torch, fn) -> int:
+    """Synchronising calls ``fn()`` makes: each stalls the host until
+    the card catches up."""
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def time_train_steps(torch, setup, batch, seed, base_bytes):
     """ms of an optimizer step (CUDA events around the step function)
     and of its forward, backward and optimizer parts (events between
@@ -1259,17 +1273,8 @@ def time_train_steps(torch, setup, batch, seed, base_bytes):
         whole.append(a.elapsed_time(b))
     peak = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
     med = np.median(np.asarray(parts), axis=0)
-    # Synchronising calls in one step (informational): each stalls the
-    # host until the card catches up.
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            setup.step(state, batch, noise=noise)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    syncs = count_syncs(torch, lambda: setup.step(state, batch,
+                                                  noise=noise))
     return {"step_ms": float(np.median(whole)), "syncs_per_step": syncs,
             "step_spread_ms": [float(min(whole)), float(max(whole))],
             "forward_ms": float(med[0]), "backward_ms": float(med[1]),
@@ -1320,6 +1325,45 @@ def train_card_vs_cpu(torch, setup, batch_np, seed):
             "worst_grad": worst}
 
 
+def serve_trained(torch, name, config, setup, state, seed, device):
+    """The trained params exported through the CLI's ``_export``
+    (270x480, bf16) and served through ``create_runtime`` +
+    ``Engine.process`` with the launch counts set to 0 first: 68 K1 + 1
+    K2 a step, output not clipped flat, frames against the same package
+    on the CPU, replays equal to eager steps.  Returns the launches and
+    ``(engine, frames)``."""
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
+    from joshupscale_torch.training.cli import _export
+
+    _export(config["export"], config, setup.models, setup.built, state)
+    package = os.path.join(config["export"]["dir"], "package")
+    frames = frames_for(FRAMES, seed)
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    engine = create_runtime(package, device=device)
+    outs = [engine.process(f) for f in frames]
+    torch.cuda.synchronize()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    steps = WARMUP_STEPS + 1
+    log(f"{name}: create_runtime + {len(frames)} frames through "
+        f"Engine.process: K1 launches={k1} ({k1 / steps:g}/step), K2 "
+        f"launches={k2} ({k2 / steps:g}/step), P1/P2 {p1}/{p2}; in the "
+        f"graph: {engine.graph_launches}")
+    if (k1 != K1_PER_FRAME * steps or k2 != steps or p1 or p2
+            or engine.graph_launches["resblock_conv3x3"] != K1_PER_FRAME
+            or engine.graph_launches["d2s_display_u8"] != 1):
+        raise AssertionError(f"{name}: expected 68 K1 + 1 K2 a step")
+    inside = float(np.mean([((o > 0) & (o < 255)).mean() for o in outs]))
+    if any(o.shape != (4 * H, 4 * W, 3) for o in outs) or inside < 0.5:
+        raise AssertionError(f"{name}: bad or clipped output")
+    cpu = create_runtime(package, device="cpu")
+    for i in range(2):
+        card_vs_cpu(name, f"frame {i}", outs[i], cpu.process(frames[i]))
+    check_replay(torch, name, engine, frames, device)
+    return (k1, k2), (engine, frames)
+
+
 def phase_train(torch, seed, device, out_dir):
     """FRVSR training at full width (``TRAIN_MODELS``: flow 64x10,
     generator 64x24; batch 4, T = 10, LR crop 32, u8 batches with
@@ -1337,8 +1381,7 @@ def phase_train(torch, seed, device, out_dir):
     on XLA convs; the port on library convs under autograd)."""
     import itertools
 
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
-    from joshupscale_torch.training.cli import _export, build_training
+    from joshupscale_torch.training.cli import build_training
     from joshupscale_torch.export.weights import to_flat_numpy
     from joshupscale_torch.training.trainer import (
         device_normalize,
@@ -1408,52 +1451,32 @@ def phase_train(torch, seed, device, out_dir):
     if k1 or k2 or p1 or p2:
         raise AssertionError("train: a kernel launched in a train step")
 
-    # Serve what was trained.
-    _export(config["export"], config, setup.models, setup.built, state)
-    package = os.path.join(config["export"]["dir"], "package")
-    frames = frames_for(FRAMES, seed)
-    for k in kernels:
-        k.launches = 0
-    engine = create_runtime(package, device=device)
-    outs = [engine.process(f) for f in frames]
-    torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
-    steps = WARMUP_STEPS + 1
-    log(f"trained export: create_runtime + {len(frames)} frames through "
-        f"Engine.process: K1 launches={k1} ({k1 / steps:g}/step), K2 "
-        f"launches={k2} ({k2 / steps:g}/step), P1/P2 {p1}/{p2}; in the "
-        f"graph: {engine.graph_launches}")
-    if (k1 != K1_PER_FRAME * steps or k2 != steps or p1 or p2
-            or engine.graph_launches["resblock_conv3x3"] != K1_PER_FRAME
-            or engine.graph_launches["d2s_display_u8"] != 1):
-        raise AssertionError("trained export: expected 68 K1 + 1 K2 a step")
-    inside = float(np.mean([((o > 0) & (o < 255)).mean() for o in outs]))
-    if any(o.shape != (4 * H, 4 * W, 3) for o in outs) or inside < 0.5:
-        raise AssertionError("trained export: bad or clipped output")
-    cpu = create_runtime(package, device="cpu")
-    for i in range(2):
-        card_vs_cpu("trained export", f"frame {i}", outs[i],
-                    cpu.process(frames[i]))
-    check_replay(torch, "trained export", engine, frames, device)
-    res["export_launches"] = (k1, k2)
-    res["engine"] = (engine, frames)
+    res["export_launches"], res["engine"] = serve_trained(
+        torch, "trained export", config, setup, state, seed, device)
     log(f"train: phase took {time.perf_counter() - t0:.1f} s")
     return res
 
 
-def profile_train(torch, seed, device, step_ms):
+def profile_train(torch, seed, device, step_ms, label="train",
+                  build=None):
     """Device time of a full-width train step by kernel group, from a
     profile of 2 steps after 2 warm-up steps, in float32 and bf16; the
-    idle share against the unprofiled step median (``step_ms``)."""
+    idle share against the unprofiled step median (``step_ms``).
+    ``build(dtype)`` makes the setup (default: the FRVSR phase's)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
     from joshupscale_torch.training.cli import build_training
     from joshupscale_torch.training.trainer import device_normalize
 
+    if build is None:
+        def build(dtype):
+            return build_training(train_config("unused", dtype), seed,
+                                  device)
+
     batch_np = train_batches(1, seed)[0]
     out = {}
     for dtype in ("float32", "bfloat16"):
-        setup = build_training(train_config("unused", dtype), seed, device)
+        setup = build(dtype)
         batch = device_normalize(batch_np, device)
         noise = setup.built.obj.draw_noise(
             batch["input"].shape, torch.Generator(device).manual_seed(seed),
@@ -1474,7 +1497,7 @@ def profile_train(torch, seed, device, step_ms):
             groups[key] = groups.get(key, 0.0) + e["dur"] / 2e3
         busy = sum(groups.values())
         idle = 1 - busy / step_ms[dtype]
-        log(f"train {dtype}: {len(events) / 2:.0f} device ops a step, "
+        log(f"{label} {dtype}: {len(events) / 2:.0f} device ops a step, "
             f"{busy:.2f} ms of device time against the {step_ms[dtype]:.2f}"
             f" ms step (idle share {idle:.3f}): " + "; ".join(
                 f"{k} {v:.2f}" for k, v in sorted(groups.items(),
@@ -1484,6 +1507,424 @@ def profile_train(torch, seed, device, step_ms):
         del setup
         torch.cuda.empty_cache()
     return out
+
+
+# TecoGAN training: the models section of configs/gan_synth_learn.yaml
+# without its ``weights:`` lines (the FRVSR checkpoints they name are not
+# in the repository), at its trainer shape (batch 4, T = 10, LR crop 32,
+# lr 5e-5, its loss_config).
+GAN_MODELS = {
+    "flow": {"name": "flow-resnet", "num_inputs": 4, "num_filters": 64,
+             "num_res_blocks": 10},
+    "generator": {"name": "generator-resnet", "num_filters": 64,
+                  "num_res_blocks": 24},
+    "discriminator": {"name": "discriminator", "alpha": 0.25},
+    "vgg": {"name": "vgg"},
+    "inference": {"name": "inference", "flow": {"model": "flow"},
+                  "generator": {"model": "generator"},
+                  "skip_processing": True, "frame_height": 32,
+                  "frame_width": 32},
+    "gan": {"name": "gan", "flow": {"model": "flow"},
+            "generator": {"model": "generator"},
+            "discriminator": {"model": "discriminator"},
+            "vgg": {"model": "vgg"}, "inference": {"model": "inference"},
+            "learning_rate": 0.00005,
+            "loss_config": {"content_loss": 1.0, "pp_loss": 0.5,
+                            "warp_loss": 1.0, "adv_loss": 0.1,
+                            "discr_layer_loss": 0.2, "vgg_loss": 0.2,
+                            "t_balance1_threshold": 0.2,
+                            "t_balance2_threshold": 0.0}},
+}
+GAN_EPOCHS, GAN_STEPS = 2, 2  # fit: epochs x steps, then validation
+GAN_TIMED = 5  # timed steps per dtype, after 2 warm-up steps
+GAN_PLAY = 2  # play clips (the config's play_size)
+# The card-vs-CPU step's batch (the CPU side at batch 4 is the phase's
+# longest part; cut here, for this check only, where it runs over ~60 s).
+GAN_CHECK_BATCH = 4
+# Card vs CPU, one float32 step (TF32 off), written before the first
+# run: each loss term within 1e-4 relative, each gradient of both groups
+# within 1e-3 relative L2; the play prediction within 1e-3.  The first
+# run showed the generator group's gradients move by 4% on the card
+# alone under a 1e-7 relative nudge of the first convs' kernels (the
+# warp's gradient in the flow jumps where a flow crosses an integer, and
+# the 19-step sums cancel), as far as card and CPU differ: so each
+# group is held to the larger of 1e-3 and 3x its largest change under
+# three such nudges (``GAN_NUDGES``), and the 1e-3 verdict is printed.
+GAN_LOSS_RTOL, GAN_GRAD_RTOL, GAN_PLAY_ATOL = 1e-4, 1e-3, 1e-3
+GAN_NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7)
+# Launches of one play prediction: 2 per res block of both nets, 18
+# playback steps.
+K1_PER_PLAY = K1_PER_FRAME * 18
+
+
+def gan_config(out_dir: str, compute_dtype: str) -> dict:
+    models = json.loads(json.dumps(GAN_MODELS))
+    models["gan"]["compute_dtype"] = compute_dtype
+    return {
+        "models": models,
+        "train": {"model": "gan", "batch_size": TRAIN_BATCH,
+                  "epochs": GAN_EPOCHS, "steps_per_epoch": GAN_STEPS,
+                  "play_size": GAN_PLAY,
+                  "checkpoint_dir": os.path.join(out_dir, "gan_ckpt"),
+                  "tensorboard": False},
+        "export": {"dir": os.path.join(out_dir, "gan_export"),
+                   "model": "inference",
+                   "overrides": {"frame_height": H, "frame_width": W,
+                                 "compute_dtype": "bfloat16"}},
+    }
+
+
+def damp_gan(torch, gen_params):
+    """In place, as a stand-in for the FRVSR-pretrained weights the
+    config starts from: each res block's residual branch (bn_2 gamma)
+    x0.2 and the two heads x0.3, so activations stay O(1) through 24
+    blocks and the 19-step recurrence does not amplify round-off."""
+    with torch.no_grad():
+        for net in ("flow", "generator"):
+            for k, v in gen_params[net].items():
+                if k.startswith("block_"):
+                    v["bn_2"]["gamma"].mul_(0.2)
+        gen_params["flow"]["conv_2"]["kernel"].mul_(0.3)
+        gen_params["generator"]["conv_trans_2"]["kernel"].mul_(0.3)
+
+
+def build_gan(torch, config, seed, device):
+    """``build_training`` for the GAN config, its generator group damped
+    (``damp_gan``) in the registry's params and in the fresh state."""
+    from joshupscale_torch.training.cli import build_training
+
+    setup = build_training(config, seed, device)
+    damp_gan(torch, setup.built.params["gen"])
+    damp_gan(torch, setup.state.gen_params)
+    return setup
+
+
+def gan_pull(torch, setup, batch, noise, dev, nudge=None):
+    """One float32 GAN step from the registry's params on ``dev``: the
+    loss terms, both groups' gradients (host numpy), the gate decision
+    and ``discr_steps``, and the seconds it took.  ``nudge`` scales the
+    first convs' kernels (a conditioning probe)."""
+    from joshupscale_torch.training.trainer import (
+        apply_gan_gradients,
+        device_normalize,
+        exact_float32,
+        gan_gradients,
+        gan_losses,
+        init_gan_state,
+        make_optimizer,
+        to_device,
+    )
+
+    built, trainer = setup.built, setup.built.obj
+    gopt, dopt = make_optimizer(5e-5), make_optimizer(5e-5)
+    state = init_gan_state(trainer, built.params["gen"],
+                           built.params["discr"], gopt, dopt, dev)
+    if nudge is not None:
+        with torch.no_grad():
+            for net in ("flow", "generator"):
+                state.gen_params[net]["conv_1"]["kernel"].mul_(nudge)
+    t0 = time.perf_counter()
+    with exact_float32():
+        terms, upd = gan_losses(trainer, state, device_normalize(batch, dev),
+                                {k: v.to(dev) for k, v in noise.items()},
+                                to_device(built.params["vgg"], dev))
+        grads = gan_gradients(terms, state)
+        trained = apply_gan_gradients(
+            trainer, gopt, dopt, state, *grads, terms, upd,
+            trainer.config()["t_balance1_threshold"])
+    out = ({k: v.item() for k, v in terms.items()},
+           [{p: g.detach().cpu().numpy() for p, g in group.items()}
+            for group in grads], trained, state.ema["discr_steps"])
+    return out + (time.perf_counter() - t0,)
+
+
+def gan_card_vs_cpu(torch, setup, batch_np, seed):
+    """One float32 step on the card against the CPU from the same params,
+    batch and noise: every loss term, every gradient of both groups, the
+    gate decision and ``discr_steps``.  The gradients are held to
+    ``GAN_GRAD_RTOL`` or 3x the card's own largest change under the
+    ``GAN_NUDGES`` of the first convs' kernels, whichever is larger."""
+    trainer = setup.built.obj
+    b = GAN_CHECK_BATCH
+    batch_np = {k: v[:b] for k, v in batch_np.items()}
+    if b != TRAIN_BATCH:
+        log(f"gan card vs CPU: batch cut to {b} for this check")
+    noise = trainer.draw_noise(batch_np["input"].shape,
+                               torch.Generator().manual_seed(seed), "cpu")
+    card = gan_pull(torch, setup, batch_np, noise, setup.device)
+    nudged = [gan_pull(torch, setup, batch_np, noise, setup.device, n)
+              for n in GAN_NUDGES]
+    cpu = gan_pull(torch, setup, batch_np, noise, torch.device("cpu"))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+    loss_rel = {k: abs(card[0][k] - v) / max(abs(v), 1e-30)
+                for k, v in cpu[0].items()}
+    worst_loss = max(loss_rel, key=loss_rel.get)
+    res = {"loss_rel": loss_rel, "batch": b, "cpu_s": cpu[4],
+           "card_s": card[4]}
+    for i, group in enumerate(("gen", "discr")):
+        errs = {p: rel(card[1][i][p], g) for p, g in cpu[1][i].items()}
+        self_rel = max(rel(n[1][i][p], g) for n in nudged
+                       for p, g in card[1][i].items() if np.any(g))
+        bound = max(GAN_GRAD_RTOL, 3 * self_rel)
+        worst = max(errs, key=errs.get)
+        log(f"gan f32 card vs CPU, {group} group ({len(errs)} gradients): "
+            f"worst relative L2 {errs[worst]:.2e} at {worst}, median "
+            f"{float(np.median(list(errs.values()))):.2e}; within "
+            f"{GAN_GRAD_RTOL:g}: {errs[worst] <= GAN_GRAD_RTOL}; the card's "
+            f"own largest change under {len(GAN_NUDGES)} nudges of the "
+            f"first convs' kernels by 1e-7: {self_rel:.2e}, bound "
+            f"{bound:.2e}")
+        res[f"{group}_worst_grad_rel"] = errs[worst]
+        res[f"{group}_worst_grad"] = worst
+        res[f"{group}_self_rel"] = self_rel
+        res[f"{group}_bound"] = bound
+    log(f"gan f32 card vs CPU (batch {b}; card {card[4]:.1f} s, CPU "
+        f"{cpu[4]:.1f} s): worst loss term {worst_loss} relative "
+        f"{loss_rel[worst_loss]:.2e} (bound {GAN_LOSS_RTOL:g}); "
+        f"gen_loss {card[0]['gen_loss']:.7f} vs {cpu[0]['gen_loss']:.7f}; "
+        f"gate open on card / CPU: {card[2]} / {cpu[2]}, discr_steps "
+        f"{card[3]} / {cpu[3]}")
+    if (loss_rel[worst_loss] > GAN_LOSS_RTOL
+            or res["gen_worst_grad_rel"] > res["gen_bound"]
+            or res["discr_worst_grad_rel"] > res["discr_bound"]
+            or card[2] != cpu[2] or card[3] != cpu[3]):
+        raise AssertionError("gan: the card's f32 step disagrees with the "
+                             "CPU's beyond the bound")
+    return res
+
+
+def gan_gate_shut(torch, setup, state, batch):
+    """One step with ``ema["t_balance1"]`` forced to 1.0: the
+    discriminator's params (the moving statistics aside) and its Adam
+    moments unchanged bit for bit, its count and ``discr_steps`` too."""
+    params = {p: v.detach().clone() for p, v in
+              trainable_paths(state.discr_params)}
+    moments = {(m, p): v.clone() for m in ("mu", "nu") for p, v in
+               trainable_paths(state.discr_opt_state[m])}
+    count, steps = state.discr_opt_state["count"], state.ema["discr_steps"]
+    gen_count = state.gen_opt_state["count"]
+    state.ema["t_balance1"] = torch.ones((), device=setup.device)
+    state, metrics = setup.step(state, batch,
+                                rng=torch.Generator(setup.device)
+                                .manual_seed(1))
+    same = (all(torch.equal(v, dict(trainable_paths(
+        state.discr_params))[p]) for p, v in params.items())
+        and all(torch.equal(v, dict(trainable_paths(
+            state.discr_opt_state[m]))[p]) for (m, p), v in moments.items()))
+    log(f"gan gate shut (t_balance1 EMA 1.0 before the step): "
+        f"discriminator params and Adam moments unchanged bit for bit: "
+        f"{same}; count {count} -> {state.discr_opt_state['count']}, "
+        f"discr_steps {steps} -> {state.ema['discr_steps']}, generator "
+        f"count {gen_count} -> {state.gen_opt_state['count']}")
+    if (not same or state.discr_opt_state["count"] != count
+            or state.ema["discr_steps"] != steps
+            or state.gen_opt_state["count"] != gen_count + 1):
+        raise AssertionError("gan: a shut gate moved the discriminator")
+    return state
+
+
+def trainable_paths(tree, path=""):
+    """``(dotted path, tensor)`` of a tree's leaves outside the moving
+    statistics."""
+    for k, v in tree.items():
+        p = f"{path}.{k}" if path else k
+        if isinstance(v, dict):
+            yield from trainable_paths(v, p)
+        elif not k.startswith("moving_"):
+            yield p, v
+
+
+def time_gan_steps(torch, setup, batch, seed, base_bytes):
+    """ms of a GAN step and of its forward (both nets, losses), backward
+    (the two pulls) and optimizer (both Adams, the gate's host read, the
+    BN merges) parts, CUDA events between them, medians of
+    ``GAN_TIMED`` steps after 2 warm-up steps; peak device memory above
+    ``base_bytes``; synchronising calls in one step."""
+    from joshupscale_torch.training.trainer import (
+        apply_gan_gradients,
+        exact_float32,
+        gan_gradients,
+        gan_losses,
+        to_device,
+    )
+
+    trainer, state = setup.built.obj, setup.state
+    vgg = to_device(setup.built.params["vgg"], setup.device)
+    noise = trainer.draw_noise(batch["input"].shape,
+                               torch.Generator(setup.device).manual_seed(seed),
+                               setup.device)
+    threshold = trainer.config()["t_balance1_threshold"]
+    exact = setup.step.exact_float32
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def split_step():
+        e = [ev() for _ in range(4)]
+        with exact_float32(exact):
+            e[0].record()
+            terms, upd = gan_losses(trainer, state, batch, noise, vgg)
+            e[1].record()
+            grads = gan_gradients(terms, state)
+            e[2].record()
+            apply_gan_gradients(trainer, setup.optimizer,
+                                setup.discr_optimizer, state, *grads,
+                                terms, upd, threshold)
+            e[3].record()
+        return e
+
+    for _ in range(2):
+        split_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    parts, whole = [], []
+    for _ in range(GAN_TIMED):
+        e = split_step()
+        torch.cuda.synchronize()
+        parts.append([e[i].elapsed_time(e[i + 1]) for i in range(3)])
+        whole.append(e[0].elapsed_time(e[3]))
+    peak = (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 30
+    med = np.median(np.asarray(parts), axis=0)
+    syncs = count_syncs(torch, lambda: setup.step(state, batch,
+                                                  noise=noise))
+    return {"step_ms": float(np.median(whole)), "syncs_per_step": syncs,
+            "step_spread_ms": [float(min(whole)), float(max(whole))],
+            "forward_ms": float(med[0]), "backward_ms": float(med[1]),
+            "optimizer_ms": float(med[2]), "peak_gib": float(peak),
+            "discr_steps": state.ema["discr_steps"], "steps": state.step}
+
+
+def phase_gan(torch, seed, device, out_dir):
+    """TecoGAN training at full width (``GAN_MODELS``: flow 64x10,
+    generator 64x24, discriminator alpha 0.25, VGG19 with seeded random
+    weights; batch 4, T = 10 -> the 19-frame ping-pong, LR crop 32; u8
+    batches with saturated pixels) from the CLI's ``build_training``
+    (the generator group damped by ``damp_gan``):
+    ``fit`` for 2 epochs x 2 steps with a validation batch into a
+    checkpoint directory, the play callback's prediction each epoch
+    (``PlayCallback.predict``: ``predict_sequence`` + ``build_strips``
+    on the card, through K1 in float32; no GIF), checked against the CPU;
+    one float32 step on the card against the CPU; the gate forced shut
+    for one step; steps timed in float32 and bf16; then the generator
+    group exported and served as the FRVSR phase serves its export.  The
+    train steps launch no K1 or K2."""
+    import itertools
+
+    from joshupscale_torch.export.weights import to_flat_numpy
+    from joshupscale_torch.training.play import (
+        PlayCallback,
+        predict_sequence,
+    )
+    from joshupscale_torch.training.trainer import (
+        device_normalize,
+        fit,
+        load_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    batches = train_batches(GAN_EPOCHS * GAN_STEPS + 1, seed)
+    kernels = all_kernels()
+    config = gan_config(out_dir, "float32")
+    setup = build_gan(torch, config, seed, device)
+    ckpt = config["train"]["checkpoint_dir"]
+    inference = setup.built.config["inference"]
+    play_batch = {k: v[:GAN_PLAY] for k, v in batches[-1].items()}
+    play = PlayCallback(inference.obj, play_batch, "unused", device=device)
+    strips = []
+    for k in kernels:
+        k.launches = 0
+    state, history = fit(
+        setup.step, setup.state, itertools.cycle(batches[:-1]),
+        epochs=GAN_EPOCHS, steps_per_epoch=GAN_STEPS,
+        rng=torch.Generator(device).manual_seed(seed),
+        val_fn=setup.val_fn, val_data=[batches[-1]], checkpoint_dir=ckpt,
+        monitor=setup.monitor,
+        epoch_callback=lambda e, st, entry: strips.append(play.predict(st)),
+        log_fn=lambda m: log(f"gan fit: {m}"))
+    torch.cuda.synchronize()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    log(f"gan fit: launches over {GAN_EPOCHS * GAN_STEPS} steps, "
+        f"{GAN_EPOCHS} validations and {len(strips)} play predictions: K1 "
+        f"{k1} (play: {K1_PER_PLAY} a prediction, f32), K2 {k2}, P1/P2 "
+        f"{p1}/{p2}")
+    if (k1 != K1_PER_PLAY * len(strips) or k2 or p1 or p2
+            or len(strips) != GAN_EPOCHS):
+        raise AssertionError("gan: the train steps launched a kernel, or "
+                             "the play prediction missed K1")
+    res = {"play_k1": k1 // len(strips), "fit_k1": k1}
+    losses = [e[k] for e in history
+              for k in ("train_gen_loss", "train_discr_loss",
+                        "val_content_loss")]
+    flat = to_flat_numpy(state.gen_params)
+    dflat = to_flat_numpy(state.discr_params)
+    moved = {"gen.flow.bn_1.moving_mean": float(np.abs(
+        flat["flow.bn_1.moving_mean"]).max()),
+        "discr.block_4.bn.moving_variance": float(np.abs(
+            dflat["block_4.bn.moving_variance"] - 1).max())}
+    loaded = load_checkpoint(os.path.join(ckpt, "latest.npz"), state.tree())
+    same = (all(np.array_equal(v, flat[p]) for p, v in
+                to_flat_numpy(loaded["gen_params"]).items())
+            and all(np.array_equal(v, dflat[p]) for p, v in
+                    to_flat_numpy(loaded["discr_params"]).items())
+            and loaded["ema"]["discr_steps"] == state.ema["discr_steps"])
+    log(f"gan fit: {len(history)} epochs, step {state.step}, discr_steps "
+        f"{state.ema['discr_steps']}, t_balance1 EMA "
+        f"{float(state.ema['t_balance1']):.5f}; gen / discr / val content "
+        f"losses {['%.5f' % x for x in losses]}; moving statistics moved "
+        f"by {moved}; latest.npz loads back equal: {same}")
+    if (len(history) != GAN_EPOCHS or not np.all(np.isfinite(losses))
+            or state.step != GAN_EPOCHS * GAN_STEPS
+            or min(moved.values()) == 0 or not same
+            or not os.path.exists(os.path.join(ckpt, "best.npz"))):
+        raise AssertionError("gan: fit did not run as expected")
+    res["fit_losses"] = losses
+
+    # The play prediction on the card against the CPU, same params.
+    cpu_pred = predict_sequence(
+        play.model, to_cpu(torch, play.params_of(state)), play.inputs.cpu(),
+        play.targets.cpu())
+    diff = np.abs(strips[-1]["gen_outputs"]
+                  - cpu_pred["gen_outputs"].numpy())
+    log(f"gan play: predict_sequence + build_strips on the card "
+        f"({GAN_PLAY} clips, 18 frames of {4 * TRAIN_CROP}x"
+        f"{4 * TRAIN_CROP}, comparison strips "
+        f"{strips[-1]['comparison'].shape}) vs the CPU: max abs "
+        f"{diff.max():.2e}, mean {diff.mean():.2e} (bound "
+        f"{GAN_PLAY_ATOL:g})")
+    if diff.max() > GAN_PLAY_ATOL:
+        raise AssertionError("gan: the play prediction disagrees with the "
+                             "CPU's")
+    res["play_max_diff"] = float(diff.max())
+
+    for k in kernels:
+        k.launches = 0
+    res["card_vs_cpu"] = gan_card_vs_cpu(torch, setup, batches[0], seed)
+    dev_batch = device_normalize(batches[0], device)
+    state = gan_gate_shut(torch, setup, state, dev_batch)
+    for dtype in ("float32", "bfloat16"):
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        timed = build_gan(torch, gan_config(out_dir, dtype), seed, device)
+        res[dtype] = time_gan_steps(torch, timed, dev_batch, seed, base)
+        del timed
+        torch.cuda.empty_cache()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    log(f"gan: launches over the card-vs-CPU step, the gate-shut step and "
+        f"the timed steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}")
+    if k1 or k2 or p1 or p2:
+        raise AssertionError("gan: a kernel launched in a train step")
+
+    res["export_launches"], res["engine"] = serve_trained(
+        torch, "gan export", config, setup, state, seed, device)
+    log(f"gan: phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def to_cpu(torch, tree):
+    if isinstance(tree, dict):
+        return {k: to_cpu(torch, v) for k, v in tree.items()}
+    return tree.detach().cpu()
 
 
 def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
@@ -1633,7 +2074,9 @@ def main() -> int:
     k1_n2, lib_n2 = time_k1(torch, device, 64, n=2)
     with tempfile.TemporaryDirectory() as train_dir:
         train = phase_train(torch, args.seed, device, train_dir)
+        gan = phase_gan(torch, args.seed, device, train_dir)
     paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
+    paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
@@ -1641,6 +2084,11 @@ def main() -> int:
     train_prof = profile_train(
         torch, args.seed, device,
         {d: train[d]["step_ms"] for d in ("float32", "bfloat16")})
+    gan_prof = profile_train(
+        torch, args.seed, device,
+        {d: gan[d]["step_ms"] for d in ("float32", "bfloat16")}, "gan",
+        lambda dtype: build_gan(torch, gan_config("unused", dtype),
+                                args.seed, device))
     paths.clear()
     batched.clear()
 
@@ -1660,7 +2108,9 @@ def main() -> int:
                                "int8 ps2_style")},
                **{name: (par[name]["k1"], par[name]["k2"])
                   for name in ("sharded x2", "sharded x4", "pipelined")},
-               "trained export": train["export_launches"]}
+               "trained export": train["export_launches"],
+               "gan export": gan["export_launches"],
+               "gan play (one prediction, f32)": (gan["play_k1"], 0)}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
                                                k1_n2["conv_2"])
     kernels = [
@@ -1761,6 +2211,19 @@ def main() -> int:
             f"calls a step, device busy {train_prof[dtype]['busy_ms']:.2f} "
             f"ms (idle share {train_prof[dtype]['idle_share']:.3f}) on "
             f"{card}")
+    for dtype in ("float32", "bfloat16"):
+        t, p = gan[dtype], gan_prof[dtype]
+        log(f"gan {dtype} (flow 64x10, generator 64x24, discriminator "
+            f"alpha 0.25, VGG19, batch {TRAIN_BATCH}, T = {TRAIN_T}, crop "
+            f"{TRAIN_CROP}): step median {t['step_ms']:.2f} ms (spread "
+            f"{t['step_spread_ms'][0]:.2f}-{t['step_spread_ms'][1]:.2f}), "
+            f"forward {t['forward_ms']:.2f} + backward {t['backward_ms']:.2f}"
+            f" + optimizer {t['optimizer_ms']:.2f} ms, peak memory "
+            f"{t['peak_gib']:.2f} GiB, {t['syncs_per_step']} synchronising "
+            f"calls a step, {p['ops']:.0f} device ops, device busy "
+            f"{p['busy_ms']:.2f} ms (idle share {p['idle_share']:.3f}), "
+            f"discriminator trained {t['discr_steps']} of {t['steps']} "
+            f"steps on {card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

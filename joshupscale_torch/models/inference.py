@@ -200,7 +200,8 @@ class InferenceModel:
         display tensor.  "output" is the (N, 4H, 4W, 3) uint8 frame,
         made in the step unless the display is deferred (s2d mode) or
         ``skip_processing`` holds; with ``skip_processing``,
-        "output_denorm" is the float HR frame.
+        "output_denorm" is the float HR frame and "pre_warp" the HR
+        warped state (the play callback's strips; with a flow net).
         """
         if self.remove_flow:
             pre = self._preprocess(cur_frame)
@@ -271,10 +272,14 @@ class InferenceModel:
         else:
             new_pre_gen = output_raw.to(pre_gen.dtype)
         if not self.s2d_mode:
-            return self._hr_outputs(out), {"pre_gen": new_pre_gen}
+            outputs = self._hr_outputs(out)
+            if self.skip_processing:
+                outputs["pre_warp"] = pre_warp.float()
+            return outputs, {"pre_gen": new_pre_gen}
         outputs = {"output_s2d": out}
         if self.skip_processing:
             outputs["output_denorm"] = depth_to_space(out, 4).float()
+            outputs["pre_warp"] = depth_to_space(pre_warp, 4).float()
         elif not self.deferred_display:
             outputs["output"] = postprocess(depth_to_space(out, 4))
         return outputs, {"pre_gen": new_pre_gen}

@@ -1,12 +1,16 @@
 """Config-driven model registry.
 
-Port of ``create_models`` from ``joshupscale_tpu/models/registry.py`` for
+Port of ``create_models`` from ``joshupscale_tpu/models/registry.py``:
 the factories ``flow-resnet``, ``flow-autoencoder``, ``generator-resnet``,
-``inference`` and the FRVSR trainers ``frvsr`` and ``frvsr-single``.
-Entries name a factory; values of the form ``{"model": <name>}``
-cross-reference other entries; ``weights`` loads a flat ``.npz``
-(optionally a dotted ``prefix`` subtree of it); ``freeze`` (true, or a
-list of dotted paths) marks params the trainers must not move.
+``discriminator``, ``vgg``, ``inference``, the FRVSR trainers ``frvsr``
+and ``frvsr-single`` and the TecoGAN trainer ``gan``.  Entries name a
+factory; values of the form ``{"model": <name>}`` cross-reference other
+entries; ``weights`` loads a flat ``.npz`` (optionally a dotted
+``prefix`` subtree of it); ``freeze`` (true, or a list of dotted paths)
+marks params the trainers must not move; ``copy_weights: <name>`` takes
+the leaves whose paths and shapes match from another entry, and
+``copy_variables: <name>`` migrates another entry's weights by an LCS
+over (leaf name, shape) (``utils/migrate.py``).
 Initialization is seeded numpy glorot-uniform: the port's own random
 values, not the reference's -- carry weights across with
 ``export/weights.py``.
@@ -21,7 +25,9 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from joshupscale_torch.models import discriminator as disc_mod
 from joshupscale_torch.models import fnet, generator
+from joshupscale_torch.models import vgg as vgg_mod
 from joshupscale_torch.models.inference import InferenceModel
 from joshupscale_torch.ops.temporal import FrameMovingAvgConfig
 
@@ -106,6 +112,22 @@ def _build_generator_resnet(rng, *, num_filters=64, num_res_blocks=24,
                       train_apply=functools.partial(
                           generator.generator_resnet_train,
                           activation=activation))
+
+
+def _build_discriminator(rng, *, crop_size=None, activation="lrelu",
+                         alpha=1.0, **_):
+    params = disc_mod.discriminator_init(rng, alpha=alpha)
+    apply = functools.partial(disc_mod.discriminator_apply,
+                              activation=activation)
+    return BuiltModel(kind="discriminator", params=params, apply=apply,
+                      config={"crop_size": crop_size})
+
+
+def _build_vgg(rng, *, crop_size=None, out_layers=None, weights=None, **_):
+    params, apply = vgg_mod.build_vgg(rng, out_layers=out_layers,
+                                      weights_path=weights)
+    return BuiltModel(kind="vgg", params=params, apply=apply,
+                      trainable=False)
 
 
 def _build_inference(rng, *, generator_model: BuiltModel,
@@ -200,19 +222,70 @@ def _build_frvsr_single(rng, *, inference_model: BuiltModel,
                 "inference": inference_model})
 
 
+def _build_gan(rng, *, flow_model: BuiltModel, generator_model: BuiltModel,
+               discriminator_model: BuiltModel, vgg_model: BuiltModel,
+               inference_model: Optional[BuiltModel] = None,
+               learning_rate=0.0005, normalize_brightness=False,
+               loss_config=None, regularization=None,
+               compute_dtype=torch.float32, s2d_train_warp=True,
+               s2d_scan_warp=None, **_):
+    """TecoGAN trainer over a flow net, a generator, a discriminator and
+    VGG.  Its ``frozen_paths`` are relative to the generator group
+    (``params["gen"]``); the discriminator's freeze rides in ``config``
+    (``discr_trainable``, ``discr_frozen_paths``) for its own mask."""
+    from joshupscale_torch.training.gan import GANTrainer
+
+    trainer = GANTrainer(
+        flow_apply=flow_model.train_apply,
+        generator_apply=generator_model.train_apply,
+        discriminator_apply=discriminator_model.apply,
+        vgg_apply=vgg_model.apply,
+        num_flow_frames=flow_model.config.get("num_inputs", 4),
+        normalize_brightness=normalize_brightness,
+        loss_config=tuple(sorted((loss_config or {}).items())),
+        compute_dtype=compute_dtype,
+        s2d_train_warp=s2d_train_warp,
+        s2d_scan_warp=s2d_scan_warp,
+    )
+    params = {"gen": {"flow": flow_model.params,
+                      "generator": generator_model.params},
+              "discr": discriminator_model.params,
+              "vgg": vgg_model.params}
+    return BuiltModel(
+        kind="gan", params=params, obj=trainer,
+        frozen_paths=(_sub_frozen("flow", flow_model)
+                      + _sub_frozen("generator", generator_model)),
+        config={"learning_rate": learning_rate,
+                "regularization": regularization,
+                "inference": inference_model,
+                "discr_trainable": discriminator_model.trainable,
+                "discr_frozen_paths": tuple(
+                    discriminator_model.frozen_paths)})
+
+
 MODELS: Dict[str, Callable[..., BuiltModel]] = {
     "flow-resnet": _build_flow_resnet,
     "flow-autoencoder": _build_flow_autoencoder,
     "generator-resnet": _build_generator_resnet,
+    "discriminator": _build_discriminator,
+    "vgg": _build_vgg,
     "inference": _build_inference,
     "frvsr": _build_frvsr,
     "frvsr-single": _build_frvsr_single,
+    "gan": _build_gan,
 }
 
-# Factories of the reference that a later slice brings.
-_GAN_SLICE = "the GAN training slice (ROADMAP 14b)"
-_LATER_MODELS = {"discriminator": _GAN_SLICE, "vgg": _GAN_SLICE,
-                 "gan": _GAN_SLICE}
+
+def _copy_matching(dst_tree, src_tree):
+    """``dst_tree`` with the leaves of ``src_tree`` whose paths and
+    shapes match (the reference's ``_copy_matching``)."""
+    if isinstance(dst_tree, dict) and isinstance(src_tree, dict):
+        return {k: (_copy_matching(v, src_tree[k]) if k in src_tree else v)
+                for k, v in dst_tree.items()}
+    if (torch.is_tensor(dst_tree) and torch.is_tensor(src_tree)
+            and dst_tree.shape == src_tree.shape):
+        return src_tree
+    return dst_tree
 
 
 def _check_same_structure(template, loaded, path=""):
@@ -266,21 +339,14 @@ def create_models(config: Dict[str, Any],
         model_type = args.pop("name")
         weights = args.pop("weights", None)
         freeze = args.pop("freeze", None)
-        for meta in ("copy_weights", "copy_variables"):
-            if args.pop(meta, None) is not None:
-                raise NotImplementedError(
-                    f"{meta} is not ported yet; it waits for "
-                    f"{_GAN_SLICE}")
+        copy_weights = args.pop("copy_weights", None)
+        copy_variables = args.pop("copy_variables", None)
         if isinstance(args.get("compute_dtype"), str):
             args["compute_dtype"] = DTYPES[args["compute_dtype"]]
         for arg, val in list(args.items()):
             if isinstance(val, dict) and "model" in val:
                 args[arg + "_model"] = build(val["model"])
                 del args[arg]
-        if model_type in _LATER_MODELS:
-            raise NotImplementedError(
-                f"model type {model_type} is not ported yet; it waits for "
-                f"{_LATER_MODELS[model_type]}")
         if model_type not in MODELS:
             raise ValueError(f"Unknown model type {model_type}")
         rng = np.random.default_rng([seed, seeds[name]])
@@ -297,6 +363,14 @@ def create_models(config: Dict[str, Any],
             else:
                 loaded = load_params_npz(weights)
             model.params = load_into(model.params, loaded)
+        if copy_weights is not None:
+            model.params = _copy_matching(model.params,
+                                          build(copy_weights).params)
+        if copy_variables is not None:
+            from joshupscale_torch.utils.migrate import copy_model_variables
+
+            model.params = copy_model_variables(
+                model.params, build(copy_variables).params)
         models[name] = model
         return model
 

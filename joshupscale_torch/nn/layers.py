@@ -1,7 +1,9 @@
 """Functional conv / batch-norm layers.
 
-Port of ``joshupscale_tpu/nn/layers.py``: the inference layers, and
-batch norm in training form (``batch_norm_train``).  Activations are
+Port of ``joshupscale_tpu/nn/layers.py``: the inference layers, batch
+norm in training form (``batch_norm_train``), and what the
+discriminator and VGG add: strided and even-kernel SAME convs, ``dense``
+and a 2x2 max pool.  Activations are
 NHWC.  Conv kernels are stored OHWI ``(out, kh, kw, in)``:
 ``kernel.permute(0, 3, 1, 2)`` is the OIHW view ``F.conv2d`` takes
 (channels-last strides, no copy), and the res-block kernel
@@ -78,22 +80,43 @@ def _record(params, x: torch.Tensor) -> None:
         _recorder(params["path"], x)
 
 
-def conv2d(params, x: torch.Tensor) -> torch.Tensor:
-    """NHWC SAME conv, stride 1, OHWI kernel; output dtype = input dtype.
+def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """TF ``SAME`` padding of one axis: ``total = max((out - 1) * stride
+    + k - size, 0)`` with ``out = ceil(size / stride)``, split ``(total
+    // 2, total - total // 2)`` -- one more after than before when
+    ``total`` is odd."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
 
-    A plain library conv: used for the first convs and the 1x1 heads,
-    outside any kernel of the reference.  Int8 params (as
-    ``prepare_conv_int8`` makes them) run ``conv2d_int8``.
+
+def conv2d(params, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NHWC SAME conv, OHWI kernel; output dtype = input dtype.
+
+    A plain library conv: used for the first convs, the 1x1 heads, the
+    discriminator and VGG, outside any kernel of the reference.  An
+    even kernel or a stride is padded as TF's ``SAME`` pads
+    (``same_padding``, asymmetric when the total is odd) by ``F.pad``
+    before the conv.  Int8 params (as ``prepare_conv_int8`` makes them)
+    run ``conv2d_int8``.
     """
     _record(params, x)
     if "matrix_q" in params:
+        if stride != 1:
+            raise ValueError("the int8 conv runs at stride 1 only")
         return conv2d_int8(params, x)
     kernel = params["kernel"].to(x.dtype)
     k = kernel.shape[1]
-    if k % 2 == 0:
-        raise ValueError(f"SAME padding needs an odd kernel, got {k}")
-    out = F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(0, 3, 1, 2),
-                   padding=k // 2)
+    xt = x.permute(0, 3, 1, 2)
+    ph = same_padding(x.shape[1], k, stride)
+    pw = same_padding(x.shape[2], k, stride)
+    if ph == pw and ph[0] == ph[1]:
+        pad = ph[0]
+    else:
+        # F.conv2d pads symmetrically only.
+        xt, pad = F.pad(xt, pw + ph), 0
+    out = F.conv2d(xt, kernel.permute(0, 3, 1, 2), stride=stride,
+                   padding=pad)
     out = out.permute(0, 2, 3, 1)
     if "bias" in params:
         out = out + params["bias"].to(x.dtype)
@@ -278,6 +301,26 @@ def batch_norm_train(params, x: torch.Tensor, eps: float = BN_EPS):
             + var * (1 - m),
         }
     return y, new_stats
+
+
+def dense_init(rng: np.random.Generator, in_dim: int, out_dim: int):
+    """Dense param dict: (in, out) kernel, as the reference stores it
+    (``export/weights.py`` leaves 2-D kernels as they are), zero bias."""
+    return {"kernel": torch.from_numpy(glorot_uniform(
+        rng, (in_dim, out_dim), in_dim, out_dim)),
+        "bias": torch.zeros(out_dim)}
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    """``x @ kernel + bias`` over the last axis, in ``x.dtype``."""
+    return (torch.matmul(x, params["kernel"].to(x.dtype))
+            + params["bias"].to(x.dtype))
+
+
+def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 max pool, stride 2, VALID (an odd last row or column is
+    dropped), NHWC."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,11 @@
 """Tensor ops of the serving path (NHWC, PyTorch)."""
 
 from joshupscale_torch.ops.image import brightness, postprocess, preprocess
-from joshupscale_torch.ops.resize import resize_bilinear, upscale_bilinear
+from joshupscale_torch.ops.resize import (
+    resize_bilinear,
+    upscale_bilinear,
+    upscale_nearest,
+)
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 from joshupscale_torch.ops.temporal import (
     FrameMovingAvgConfig,
@@ -21,4 +25,5 @@ __all__ = [
     "resize_bilinear",
     "space_to_depth",
     "upscale_bilinear",
+    "upscale_nearest",
 ]

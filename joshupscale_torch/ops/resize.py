@@ -107,6 +107,18 @@ def upscale_bilinear(x: torch.Tensor, scale: int) -> torch.Tensor:
     return out.reshape(n, h * s, w * s, c)
 
 
+def upscale_nearest(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """Nearest-neighbour x``scale`` upscale on the TF1 legacy grid: the
+    source of output pixel ``y`` is ``floor(y / scale)``, plain pixel
+    replication (NHWC)."""
+    s = int(scale)
+    if s == 1:
+        return x
+    n, h, w, c = x.shape
+    out = x[:, :, None, :, None, :].expand(n, h, s, w, s, c)
+    return out.reshape(n, h * s, w * s, c)
+
+
 def _tf1_indices(out_size: int, in_size: int):
     """Legacy-grid source indices and weights for one axis (numpy)."""
     scale = in_size / out_size

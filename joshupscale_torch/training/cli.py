@@ -1,18 +1,20 @@
 """Training CLI: YAML config -> models -> datasets -> fit -> export.
 
 Port of ``joshupscale_tpu/training/cli.py`` for the FRVSR trainers
-(``frvsr``, ``frvsr-single``).  The config has ``models:`` (registry
-entries), ``train_dataset:`` / ``val_dataset:`` (op chains),
-``train:`` (loop settings) and ``export:`` (the package to write).
+(``frvsr``, ``frvsr-single``) and the TecoGAN trainer (``gan``).  The
+config has ``models:`` (registry entries), ``train_dataset:`` /
+``val_dataset:`` (op chains), ``train:`` (loop settings) and
+``export:`` (the package to write).
 
-``build_training`` makes the models, the optimizer, the step, the
-state and the validation function; ``train`` adds the datasets, the
-fit loop and the export.  Runs on the CUDA device unless ``--cpu``.
-Not ported yet, each raising where a config asks for it: the GAN
-trainer (ROADMAP 14b; the registry refuses it), the data-parallel mesh
-(``--num-devices`` > 1, ROADMAP 14d), ``export.onnx`` (ROADMAP 15);
-the reference's play callback (GAN slice) and profiler window do not
-run.
+``build_training`` makes the models, the optimizers (two for the GAN,
+each with its freeze mask), the step, the state and the validation
+function; ``train`` adds the datasets, the play callback (GIF strips of
+the inference entry on the play clips, when the trainer names one and a
+validation set is given), the fit loop and the export.  Runs on the
+CUDA device unless ``--cpu``.  Not ported yet, each raising where a
+config asks for it: the data-parallel mesh (``--num-devices`` > 1,
+ROADMAP 14d) and ``export.onnx`` (ROADMAP 15); the reference's profiler
+window does not run.
 
 Usage: ``python -m joshupscale_torch.training.cli -c config.yaml [--cpu]``
 """
@@ -22,7 +24,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -31,15 +33,19 @@ from joshupscale_torch import resolve_device
 from joshupscale_torch.export.package import save_package
 from joshupscale_torch.export.weights import to_flat_numpy
 from joshupscale_torch.models.registry import BuiltModel, create_models
+from joshupscale_torch.training.play import PLAY_FRAMES, PlayCallback
 from joshupscale_torch.training.trainer import (
     Adam,
-    TrainState,
+    TensorBoardLogger,
     build_frvsr_step,
+    build_gan_step,
     fit,
     freeze_mask,
+    init_gan_state,
     init_train_state,
     load_checkpoint,
     make_optimizer,
+    to_device,
 )
 
 
@@ -66,63 +72,113 @@ def main(argv=None) -> int:
                  device="cpu" if args.cpu else None)
 
 
+_TRAINERS = ("frvsr", "frvsr-single", "gan")
+
+
 @dataclasses.dataclass
 class TrainingSetup:
     """What ``train`` runs: the built models, the trainer entry, its
-    optimizer, step and fresh state, and the validation function."""
+    optimizer (the generator group's for the GAN, with
+    ``discr_optimizer``), step and fresh state (``TrainState`` or
+    ``GANTrainState``), and the validation function."""
 
     models: Dict[str, BuiltModel]
     built: BuiltModel
     optimizer: Adam
     step: Callable
-    state: TrainState
+    state: Any
     val_fn: Callable
     monitor: str
     device: torch.device
+    discr_optimizer: Optional[Adam] = None
+
+
+def _mask(params, frozen_paths, trainable):
+    """``freeze_mask`` where something is frozen, else None."""
+    if frozen_paths or not trainable:
+        return freeze_mask(params, tuple(frozen_paths), trainable=trainable)
+    return None
 
 
 def build_training(config: Dict[str, Any], seed: int = 0,
                    device=None) -> TrainingSetup:
-    """Models, optimizer, step, state and ``val_fn`` for a config's
-    trainer entry (``train.model``, or the one FRVSR trainer)."""
+    """Models, optimizer(s), step, state and ``val_fn`` for a config's
+    trainer entry (``train.model``, or the one trainer)."""
     dev = resolve_device(device)
     train_cfg = dict(config.get("train", {}))
     models = create_models(config["models"], seed=seed)
     name = train_cfg.get("model")
     if name is None:
-        candidates = [n for n, m in models.items()
-                      if m.kind in ("frvsr", "frvsr-single")]
+        candidates = [n for n, m in models.items() if m.kind in _TRAINERS]
         if len(candidates) != 1:
             raise ValueError(f"Set train.model; trainer candidates: "
                              f"{candidates}")
         name = candidates[0]
     built = models[name]
-    if built.kind not in ("frvsr", "frvsr-single"):
+    if built.kind not in _TRAINERS:
         raise ValueError(f"{name} is a {built.kind}, not a trainer")
     trainer = built.obj
     reg = built.config.get("regularization")
     l2_reg = (float(reg.get("l2", 0.0))
               if isinstance(reg, dict) and reg.get("name") == "l2" else 0.0)
-    optimizer = make_optimizer(built.config.get("learning_rate", 0.0005))
-    mask = (freeze_mask(built.params, tuple(built.frozen_paths),
-                        trainable=built.trainable)
-            if built.frozen_paths or not built.trainable else None)
-    step = build_frvsr_step(
-        trainer, optimizer, mask=mask, l2_reg=l2_reg,
-        steps_per_execution=int(train_cfg.get("steps_per_execution", 1)))
-    state = init_train_state(built.params, optimizer, dev)
+    lr = built.config.get("learning_rate", 0.0005)
+    spe = int(train_cfg.get("steps_per_execution", 1))
+    optimizer = make_optimizer(lr)
+    discr_optimizer = None
 
-    def val_fn(st: TrainState, batch, rng: torch.Generator):
-        # Inference batch norm (the reference's test_step).
-        with torch.no_grad():
-            noise = trainer.draw_noise(batch["input"].shape, rng, dev)
-            _, aux = trainer.loss(st.params, batch, noise, training=False)
-        return aux["metrics"]
+    if built.kind == "gan":
+        # Both freeze forms: dotted paths (sub-model freezes composed by
+        # the registry) and ``freeze: true`` on the trainer entry.
+        discr_optimizer = make_optimizer(lr)
+        gen_mask = _mask(built.params["gen"], built.frozen_paths,
+                         built.trainable)
+        discr_mask = _mask(
+            built.params["discr"],
+            built.config.get("discr_frozen_paths", ()),
+            built.trainable and built.config.get("discr_trainable", True))
+        vgg_params = to_device(built.params["vgg"], dev)
+        step = build_gan_step(trainer, optimizer, discr_optimizer,
+                              vgg_params, gen_mask=gen_mask,
+                              discr_mask=discr_mask, l2_reg=l2_reg,
+                              steps_per_execution=spe)
+        state = init_gan_state(trainer, built.params["gen"],
+                               built.params["discr"], optimizer,
+                               discr_optimizer, dev)
+
+        def val_fn(st, batch, rng: torch.Generator):
+            # Inference batch norm (the reference's test_step).
+            with torch.no_grad():
+                noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+                y = trainer.forward(st.gen_params, st.discr_params,
+                                    vgg_params,
+                                    batch["input"], batch["target"], noise,
+                                    training=False)
+                terms = trainer.compute_losses(y, st.ema)
+            return {k: v for k, v in terms.items()
+                    if k not in ("gen_loss", "discr_loss")}
+
+        monitor = train_cfg.get("monitor", "content_loss")
+    else:
+        step = build_frvsr_step(
+            trainer, optimizer,
+            mask=_mask(built.params, built.frozen_paths, built.trainable),
+            l2_reg=l2_reg, steps_per_execution=spe)
+        state = init_train_state(built.params, optimizer, dev)
+
+        def val_fn(st, batch, rng: torch.Generator):
+            # Inference batch norm (the reference's test_step).
+            with torch.no_grad():
+                noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+                _, aux = trainer.loss(st.params, batch, noise,
+                                      training=False)
+            return aux["metrics"]
+
+        monitor = train_cfg.get("monitor", "loss")
 
     return TrainingSetup(models=models, built=built, optimizer=optimizer,
                          step=step, state=state, val_fn=val_fn,
-                         monitor=train_cfg.get("monitor", "loss"),
-                         device=dev)
+                         monitor=monitor, device=dev,
+                         discr_optimizer=discr_optimizer)
 
 
 def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
@@ -146,9 +202,11 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
     train_ds = create_train_dataset(
         config["train_dataset"], batch_size, seed=seed,
         num_workers=int(train_cfg.get("data_workers", 0)))
-    val_ds = None
+    tb_dir = (os.path.join(log_dir, "tb")
+              if train_cfg.get("tensorboard", True) else None)
+    val_ds = play_cb = None
     if "val_dataset" in config:
-        val_ds, _ = create_val_dataset(
+        val_ds, play_ds = create_val_dataset(
             config["val_dataset"], batch_size,
             play_size=int(train_cfg.get("play_size", 4)),
             val_size=int(train_cfg.get("val_size", 16)), seed=seed)
@@ -156,11 +214,30 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
             print("WARNING: val dataset yielded no full batches "
                   "(val_size/batch_size exceed the available "
                   "sequences?); validation metrics will be absent")
+        inference = setup.built.config.get("inference")
+        if inference is not None and inference.obj is not None:
+            play_batch = next(iter(play_ds), None)
+            if play_batch is None:
+                raise ValueError(
+                    "play dataset is empty: the val dataset must yield at "
+                    "least play_size sequences (BatchOp drops incomplete "
+                    "batches)")
+            frames = np.asarray(play_batch["input"]).shape[1]
+            if frames < PLAY_FRAMES:
+                print(f"play callback off: the play clips have {frames} "
+                      f"frames, the playback takes {PLAY_FRAMES}")
+            else:
+                play_cb = PlayCallback(
+                    inference.obj, play_batch,
+                    os.path.join(log_dir, "play"),
+                    interval=int(train_cfg.get("play_interval", 1)),
+                    tb_logger=TensorBoardLogger(tb_dir) if tb_dir else None,
+                    device=setup.device)
 
     state = setup.state
     resume = train_cfg.get("resume")
     if resume:
-        state = TrainState(**load_checkpoint(resume, state.tree()))
+        state = type(state)(**load_checkpoint(resume, state.tree()))
         print(f"resumed from {resume}")
 
     state, _ = fit(
@@ -172,8 +249,7 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
         val_data=val_ds, cache_val_on_device=True,
         checkpoint_dir=ckpt_dir, monitor=setup.monitor,
         early_stopping_patience=train_cfg.get("early_stopping_patience"),
-        tensorboard_dir=(os.path.join(log_dir, "tb")
-                         if train_cfg.get("tensorboard", True) else None),
+        epoch_callback=play_cb, tensorboard_dir=tb_dir,
         metric_lag=train_cfg.get("metric_lag"),
         stage_inputs=bool(train_cfg.get("stage_inputs", True)))
 
@@ -183,8 +259,7 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
     return 0
 
 
-def _export(export_cfg, config, models, built: BuiltModel,
-            state: TrainState) -> None:
+def _export(export_cfg, config, models, built: BuiltModel, state) -> None:
     """Write the trained weights (``weights.npz``) and a serving package
     of the inference entry carrying them (``package/``): the config cut
     to what the inference entry reaches, with ``skip_processing:
@@ -196,7 +271,7 @@ def _export(export_cfg, config, models, built: BuiltModel,
             "import/export doors)")
     out_dir = export_cfg.get("dir", "export")
     os.makedirs(out_dir, exist_ok=True)
-    trained = state.params
+    trained = state.gen_params if built.kind == "gan" else state.params
     np.savez(os.path.join(out_dir, "weights.npz"), **to_flat_numpy(trained))
 
     inference = built.config.get("inference")
@@ -205,7 +280,7 @@ def _export(export_cfg, config, models, built: BuiltModel,
         inference = models[inf_name]
     if inference is None or inference.obj is None:
         return
-    if built.kind == "frvsr":
+    if built.kind in ("frvsr", "gan"):
         trained = {"flow": trained["flow"],
                    "generator": trained["generator"]}
     inf_key = next((n for n, m in models.items() if m is inference),

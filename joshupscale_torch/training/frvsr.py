@@ -79,6 +79,77 @@ def flow_history_frames(inputs_flow: torch.Tensor,
             for i in range(rand.shape[1])]
 
 
+def draw_recurrent_noise(num_flow_frames: int, input_shape,
+                         generator: torch.Generator, device) -> Noise:
+    """A recurrent trainer's random inputs for a (B, T, H, W, 3) batch:
+    ``first_warp`` (B, 4H, 4W, 3), the first generator call's warp
+    input, and with more than two flow inputs ``history`` (B,
+    num_flow_frames - 2, H, W, 3), the flow net's frames before the
+    first."""
+    b, _, h, w, _ = input_shape
+    noise = {"first_warp": uniform_noise((b, h * 4, w * 4, 3), generator,
+                                         device)}
+    if num_flow_frames > 2:
+        noise["history"] = uniform_noise((b, num_flow_frames - 2, h, w, 3),
+                                         generator, device)
+    return noise
+
+
+def route_warp(use_s2d: bool, image: torch.Tensor,
+               flow: torch.Tensor) -> torch.Tensor:
+    """The training warp: through the s2d table
+    (``dense_image_warp_via_s2d``) or in pixel space; the same values
+    either way."""
+    if use_s2d:
+        return dense_image_warp_via_s2d(image, flow)
+    return dense_image_warp(image, flow)
+
+
+def run_recurrence(generator_apply, gen_params, first_out: torch.Tensor,
+                   frames: torch.Tensor, flow_t: torch.Tensor,
+                   bright_diff: Optional[torch.Tensor], warp,
+                   training: bool, remat: bool):
+    """The generator's recurrence after its first call (the reference's
+    scan): step i warps the previous output (plus ``bright_diff[:, i]``)
+    by ``flow_t[:, i]`` (``warp(image, flow)``) and runs the generator
+    on ``frames[:, i]`` with a ``Mutables`` whose fade offset is i + 1.
+    With ``remat`` (and grad enabled) each step runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
+    its scan body).  Returns the outputs (the first included), the
+    warped inputs and each step's BN updates."""
+
+    def make_step(call_idx):
+        def step(last_output, frame, flow, bd):
+            if bd is not None:
+                last_output = last_output + bd
+            warped = warp(last_output, flow)
+            mut = Mutables(training,
+                           fade_offset=call_idx if training else 0)
+            out = generator_apply(gen_params, frame, warped, mut)
+            return out, warped, mut.updates
+
+        return step
+
+    last = first_out
+    outs, warps, step_updates = [first_out], [], []
+    remat = remat and torch.is_grad_enabled()
+    for i in range(frames.shape[1]):
+        step = make_step(i + 1)
+        args = (last, frames[:, i], flow_t[:, i],
+                None if bright_diff is None else bright_diff[:, i])
+        if remat:
+            # The step's updates are returned, not recorded, so the
+            # recomputation in the backward pass adds none.
+            last, warped, upd = torch.utils.checkpoint.checkpoint(
+                step, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            last, warped, upd = step(*args)
+        outs.append(last)
+        warps.append(warped)
+        step_updates.append(upd)
+    return outs, warps, step_updates
+
+
 @dataclasses.dataclass(frozen=True)
 class FRVSRTrainer:
     """Functional FRVSR training graph (reference ``FRVSRTrainer``).
@@ -101,38 +172,16 @@ class FRVSRTrainer:
     s2d_train_warp: bool = False
     s2d_scan_warp: Optional[bool] = True
 
-    def _warp(self, use_s2d: bool, image, flow):
-        if use_s2d:
-            return dense_image_warp_via_s2d(image, flow)
-        return dense_image_warp(image, flow)
+    def _scan_warp(self, image, flow):
+        use_s2d = (self.s2d_train_warp if self.s2d_scan_warp is None
+                   else self.s2d_scan_warp)
+        return route_warp(use_s2d, image, flow)
 
     def draw_noise(self, input_shape, generator: torch.Generator,
                    device) -> Noise:
         """The random inputs of one step on a (B, T, H, W, 3) batch."""
-        b, _, h, w, _ = input_shape
-        noise = {"first_warp": uniform_noise((b, h * 4, w * 4, 3),
-                                             generator, device)}
-        if self.num_flow_frames > 2:
-            noise["history"] = uniform_noise(
-                (b, self.num_flow_frames - 2, h, w, 3), generator, device)
-        return noise
-
-    def _step_fn(self, gen_params, training: bool, call_idx: int):
-        """One recurrence step: ``(last_output, frame, flow, bright_diff)
-        -> (output, warped, the step's updates)``."""
-        use_s2d = (self.s2d_train_warp if self.s2d_scan_warp is None
-                   else self.s2d_scan_warp)
-
-        def step(last_output, frame, flow, bright_diff):
-            if bright_diff is not None:
-                last_output = last_output + bright_diff
-            warped = self._warp(use_s2d, last_output, flow)
-            mut = Mutables(training,
-                           fade_offset=call_idx if training else 0)
-            out = self.generator_apply(gen_params, frame, warped, mut)
-            return out, warped, mut.updates
-
-        return step
+        return draw_recurrent_noise(self.num_flow_frames, input_shape,
+                                    generator, device)
 
     def forward(self, params, inputs: torch.Tensor, targets: torch.Tensor,
                 noise: Noise, training: bool = True) -> Dict[str, Any]:
@@ -168,7 +217,7 @@ class FRVSRTrainer:
         # The supervision warp runs in the compute dtype, then float32.
         target_prev = _merge_bt(targets[:, :-1]).to(cdt)
         target_warp = _split_bt(
-            self._warp(self.s2d_train_warp, target_prev, flow).float(),
+            route_warp(self.s2d_train_warp, target_prev, flow).float(),
             t - 1)
         if bright_diff is not None:
             target_warp = target_warp + bright_diff
@@ -176,23 +225,9 @@ class FRVSRTrainer:
         first_warp = noise["first_warp"].to(cdt)
         last = self.generator_apply(params["generator"], inputs[:, 0],
                                     first_warp, mut.scoped("generator"))
-        outs, warps, step_updates = [last], [], []
-        remat = self.remat and torch.is_grad_enabled()
-        for i in range(t - 1):
-            step = self._step_fn(params["generator"], training, i + 1)
-            args = (last, inputs[:, i + 1], flow_t[:, i],
-                    None if bright_diff is None else bright_diff[:, i])
-            if remat:
-                # The step's updates are returned, not recorded, so the
-                # recomputation in the backward pass adds none.
-                last, warped, upd = torch.utils.checkpoint.checkpoint(
-                    step, *args, use_reentrant=False,
-                    preserve_rng_state=False)
-            else:
-                last, warped, upd = step(*args)
-            outs.append(last)
-            warps.append(warped)
-            step_updates.append(upd)
+        outs, warps, step_updates = run_recurrence(
+            self.generator_apply, params["generator"], last, inputs[:, 1:],
+            flow_t, bright_diff, self._scan_warp, training, self.remat)
         if training and t > 1:
             merge_scan_bn_updates(mut, "generator.", step_updates)
         return {

@@ -1,19 +1,27 @@
-"""Training harness: the FRVSR train step, Adam, checkpoints, the fit
-loop.
+"""Training harness: the FRVSR and GAN train steps, Adam, checkpoints,
+the fit loop.
 
-Port of the FRVSR part of ``joshupscale_tpu/training/trainer.py``.  The
-params are a nested dict of float32 tensors; the trainable leaves
-(every float leaf but the batch-norm moving statistics and the fade
-schedule, ``losses.NON_TRAINABLE_KEYS``) require grad, and a step
-updates them in place: the loss and its gradients by autograd, the
-freeze mask, Adam (the reference's optax arithmetic), then the moving
-statistics the forward pass collected.
+Port of ``joshupscale_tpu/training/trainer.py``.  The params are a
+nested dict of float32 tensors; the trainable leaves (every float leaf
+but the batch-norm moving statistics and the fade schedule,
+``losses.NON_TRAINABLE_KEYS``) require grad, and a step updates them in
+place: the loss and its gradients by autograd, the freeze mask, Adam
+(the reference's optax arithmetic), then the moving statistics the
+forward pass collected.
+
+The GAN step (``build_gan_step``) keeps two param groups, each with its
+own Adam state: one forward pass, then the generator's loss
+differentiated by the generator's leaves and the discriminator's loss
+by the discriminator's.  The discriminator trains only while the
+updated ``t_balance1`` EMA is under its threshold; that decision is one
+host read of the EMA a step (Adam's bias corrections are host numbers
+here, so a gate on the device would need a device count).
 
 Checkpoints are flat ``.npz`` files in the reference's layouts and
 under its keys (params, Adam's count and moments as optax's state
-flattens them, the step), so a checkpoint either package writes resumes
-in the other.  The data-parallel mesh is not ported (ROADMAP 14d): a
-step runs on one device.
+flattens them, the GAN's EMAs, the step), so a checkpoint either
+package writes resumes in the other.  The data-parallel mesh is not
+ported (ROADMAP 14d): a step runs on one device.
 """
 
 from __future__ import annotations
@@ -185,21 +193,58 @@ def _trainable_copy(params):
     return walk(params)
 
 
+def to_device(tree, device):
+    """A param tree's float32 tensors on ``device`` (the same tensors
+    where they are there already)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device, torch.float32)
+
+
 def init_train_state(params, optimizer: Adam, device=None) -> TrainState:
     """A fresh state that owns a copy of ``params`` (on ``device``, the
     CUDA device by default; registry models share param tensors between
     entries, and a step updates in place)."""
     from joshupscale_torch import resolve_device
 
-    dev = resolve_device(device)
-
-    def to_dev(tree):
-        if isinstance(tree, dict):
-            return {k: to_dev(v) for k, v in tree.items()}
-        return tree.to(dev, torch.float32)
-
-    params = _trainable_copy(to_dev(params))
+    params = _trainable_copy(to_device(params, resolve_device(device)))
     return TrainState(params, optimizer.init(params), 0)
+
+
+@dataclasses.dataclass
+class GANTrainState:
+    """Two param groups (generator + flow, discriminator), each with its
+    Adam state, the t_balance EMAs with the count of discriminator
+    steps, and the count of steps taken."""
+
+    gen_params: Any
+    discr_params: Any
+    gen_opt_state: Any
+    discr_opt_state: Any
+    ema: Dict[str, Any]
+    step: int
+
+    def tree(self):
+        return {"gen_params": self.gen_params,
+                "discr_params": self.discr_params,
+                "gen_opt_state": self.gen_opt_state,
+                "discr_opt_state": self.discr_opt_state,
+                "ema": self.ema, "step": self.step}
+
+
+def init_gan_state(trainer, gen_params, discr_params, gen_optimizer: Adam,
+                   discr_optimizer: Adam, device=None) -> GANTrainState:
+    """A fresh GAN state owning copies of both groups (see
+    ``init_train_state``) on ``device``."""
+    from joshupscale_torch import resolve_device
+
+    dev = resolve_device(device)
+    gen_params = _trainable_copy(to_device(gen_params, dev))
+    discr_params = _trainable_copy(to_device(discr_params, dev))
+    return GANTrainState(gen_params, discr_params,
+                         gen_optimizer.init(gen_params),
+                         discr_optimizer.init(discr_params),
+                         trainer.init_ema(dev), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -250,10 +295,13 @@ def grad_leaves(params, mask=None):
             if v.requires_grad and (mask is None or _leaf(mask, p))]
 
 
-def gradients(loss: torch.Tensor, leaves) -> Dict[str, torch.Tensor]:
+def gradients(loss: torch.Tensor, leaves,
+              retain_graph: bool = False) -> Dict[str, torch.Tensor]:
     """The backward pass: ``d loss / d leaf`` by dotted path (zeros for
-    a leaf the loss does not reach)."""
+    a leaf the loss does not reach); ``retain_graph`` keeps the graph
+    for another pull."""
     grads = torch.autograd.grad(loss, [v for _, v in leaves],
+                                retain_graph=retain_graph,
                                 allow_unused=True)
     return {p: (torch.zeros_like(v) if g is None else g)
             for (p, v), g in zip(leaves, grads)}
@@ -312,6 +360,126 @@ def build_frvsr_step(trainer, optimizer: Adam, mask=None,
     return run
 
 
+def gan_losses(trainer, state: GANTrainState, batch, noise, vgg_params,
+               l2_reg: float = 0.0):
+    """The GAN step's forward pass: ``(terms, bn_updates)``, ``terms``
+    from ``trainer.compute_losses`` against the state's EMAs."""
+    y = trainer.forward(state.gen_params, state.discr_params, vgg_params,
+                        batch["input"], batch["target"], noise,
+                        training=True)
+    terms = trainer.compute_losses(y, state.ema, state.gen_params,
+                                   state.discr_params, l2_reg)
+    return terms, y["bn_updates"]
+
+
+def gan_gradients(terms, state: GANTrainState, gen_mask=None,
+                  discr_mask=None):
+    """The two gradient pulls from one forward pass: ``gen_loss`` by the
+    generator group's free leaves (the graph kept), then ``discr_loss``
+    by the discriminator's."""
+    gen = gradients(terms["gen_loss"], grad_leaves(state.gen_params,
+                                                   gen_mask),
+                    retain_graph=True)
+    discr = gradients(terms["discr_loss"],
+                      grad_leaves(state.discr_params, discr_mask))
+    return gen, discr
+
+
+def apply_gan_gradients(trainer, gen_optimizer: Adam,
+                        discr_optimizer: Adam, state: GANTrainState,
+                        gen_grads, discr_grads, terms, bn_updates,
+                        threshold: Optional[float]) -> bool:
+    """The GAN step's updates, in place: Adam on the generator group,
+    its moving statistics, the EMAs; then, if the updated
+    ``t_balance1`` EMA is under ``threshold`` (None: always), Adam on
+    the discriminator -- its params and count do not move otherwise;
+    then the discriminator's moving statistics (the real call's, as
+    the reference keeps them).  Returns whether the discriminator
+    trained."""
+    gen_optimizer.update(state.gen_params, gen_grads, state.gen_opt_state)
+    merge_bn_updates(state.gen_params, bn_updates, strip_prefixes=("gen.",))
+    state.ema = trainer.update_ema(state.ema, terms["t_balance1"].detach(),
+                                   terms["t_balance2"].detach())
+    # The step's one synchronising call, after the generator's update is
+    # queued; compared in float32, as the reference compares.
+    trained = (threshold is None
+               or float(state.ema["t_balance1"]) < np.float32(threshold))
+    if trained:
+        discr_optimizer.update(state.discr_params, discr_grads,
+                               state.discr_opt_state)
+    state.ema["discr_steps"] += int(trained)
+    # In sorted path order, as the reference merges them: its updates
+    # come back through ``jax.vjp``'s aux, a pytree whose dict keys are
+    # sorted, so "discr.real.*" is written after "discr.fake.*" and the
+    # real call's statistics are the ones kept.
+    merge_bn_updates(state.discr_params, dict(sorted(bn_updates.items())),
+                     strip_prefixes=("discr.real.", "discr.fake."))
+    state.step += 1
+    return trained
+
+
+# Metrics of a K-step execution that take the last step's value: the
+# cumulative count and the EMA snapshots.  The losses are averaged.
+_CUMULATIVE = ("discr_steps", "t_balance1_avg", "t_balance2_avg")
+
+
+def build_gan_step(trainer, gen_optimizer: Adam, discr_optimizer: Adam,
+                   vgg_params, gen_mask=None, discr_mask=None,
+                   l2_reg: float = 0.0,
+                   steps_per_execution: int = 1) -> Callable:
+    """The GAN train step: ``run(state, batch, rng=None, noise=None) ->
+    (state, metrics)``, updating the ``GANTrainState`` in place (see
+    ``apply_gan_gradients`` for the t_balance gate).
+
+    ``vgg_params`` are copied to the batch's device once, without grad.
+    ``noise`` and ``steps_per_execution`` as in ``build_frvsr_step``;
+    with K > 1 the losses are averaged over the K steps and
+    ``discr_steps``, ``t_balance1_avg`` and ``t_balance2_avg`` are the
+    last step's.  With a float32 compute dtype the step runs without
+    TF32 (``exact_float32``).
+    """
+    threshold = trainer.config()["t_balance1_threshold"]
+    k = int(steps_per_execution)
+    exact = _compute_dtype(trainer) == torch.float32
+    vgg_on: Dict[torch.device, Any] = {}
+
+    def one(state, batch, rng, noise):
+        dev = batch["input"].device
+        if dev not in vgg_on:
+            vgg_on[dev] = to_device(vgg_params, dev)
+        if noise is None:
+            noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+        terms, bn_updates = gan_losses(trainer, state, batch, noise,
+                                       vgg_on[dev], l2_reg)
+        gen_grads, discr_grads = gan_gradients(terms, state, gen_mask,
+                                               discr_mask)
+        apply_gan_gradients(trainer, gen_optimizer, discr_optimizer, state,
+                            gen_grads, discr_grads, terms, bn_updates,
+                            threshold)
+        metrics = {n: v.detach() for n, v in terms.items()}
+        metrics["discr_steps"] = torch.tensor(state.ema["discr_steps"])
+        metrics["t_balance1_avg"] = state.ema["t_balance1"]
+        metrics["t_balance2_avg"] = state.ema["t_balance2"]
+        return metrics
+
+    def run(state: GANTrainState, batch, rng=None, noise=None):
+        with exact_float32(exact):
+            if k == 1:
+                return state, one(state, batch, rng, noise)
+            per_step = [
+                one(state, {n: v[i] for n, v in batch.items()}, rng,
+                    None if noise is None else noise[i])
+                for i in range(k)]
+        metrics = {n: (per_step[-1][n] if n in _CUMULATIVE else
+                       torch.stack([m[n] for m in per_step]).mean())
+                   for n in per_step[0]}
+        return state, metrics
+
+    run.steps_per_execution = k
+    run.exact_float32 = exact
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints (flat npz, the reference's keys)
 
@@ -323,19 +491,34 @@ _OPT_KEYS = {"count": "0.0", "mu": "0.1", "nu": "0.2",
 
 
 def _flatten_state(tree) -> Dict[str, np.ndarray]:
-    flat = to_flat_numpy(tree["params"], "params")
-    for name, value in tree["opt_state"].items():
-        key = "opt_state." + _OPT_KEYS[name]
-        if isinstance(value, dict):
+    """A state tree (``TrainState.tree()`` or ``GANTrainState.tree()``)
+    as the reference's flat keys: param groups in its layouts, Adam's
+    state under optax's indices, the EMAs (``discr_steps`` int32), the
+    step."""
+    flat = {}
+    for key, value in tree.items():
+        if key.endswith("params"):
             flat.update(to_flat_numpy(value, key))
+        elif key.endswith("opt_state"):
+            for name, v in value.items():
+                sub = f"{key}.{_OPT_KEYS[name]}"
+                if isinstance(v, dict):
+                    flat.update(to_flat_numpy(v, sub))
+                else:
+                    flat[sub] = np.asarray(v, np.int32)
+        elif key == "ema":
+            for name, v in value.items():
+                dt = np.int32 if name == "discr_steps" else np.float32
+                flat[f"ema.{name}"] = np.asarray(
+                    v.detach().cpu() if torch.is_tensor(v) else v, dt)
         else:
             flat[key] = np.asarray(value, np.int32)
-    flat["step"] = np.asarray(tree["step"], np.int32)
     return flat
 
 
 def save_checkpoint(path: str, state_tree) -> None:
-    """Save a train state (``TrainState.tree()``) as a flat ``.npz``.
+    """Save a train state (``TrainState.tree()`` or
+    ``GANTrainState.tree()``) as a flat ``.npz``.
     The reference's other format, an Orbax directory, is not ported."""
     if not path.endswith(".npz"):
         raise NotImplementedError(
@@ -365,7 +548,8 @@ def _restore(template, loaded, path=""):
 
 def load_checkpoint(path: str, template_tree):
     """A ``.npz`` checkpoint of either package, as a tree shaped like
-    ``template_tree`` (``TrainState.tree()``)."""
+    ``template_tree`` (``TrainState.tree()`` or
+    ``GANTrainState.tree()``)."""
     if not path.endswith(".npz"):
         raise NotImplementedError(
             "only .npz checkpoints are ported; the reference's Orbax "
@@ -378,16 +562,26 @@ def load_checkpoint(path: str, template_tree):
         return from_flat_numpy({k[len(dot):]: v for k, v in flat.items()
                                 if k.startswith(dot)})
 
-    opt = {}
-    for name, value in template_tree["opt_state"].items():
-        key = "opt_state." + _OPT_KEYS[name]
-        if isinstance(value, dict):
-            opt[name] = _restore(value, sub(key), key)
+    out = {}
+    for key, value in template_tree.items():
+        if key.endswith("params"):
+            out[key] = _restore(value, sub(key), key)
+        elif key.endswith("opt_state"):
+            opt = {}
+            for name, v in value.items():
+                k = f"{key}.{_OPT_KEYS[name]}"
+                opt[name] = (_restore(v, sub(k), k) if isinstance(v, dict)
+                             else int(flat[k]))
+            out[key] = opt
+        elif key == "ema":
+            out[key] = {
+                name: (int(flat[f"ema.{name}"]) if name == "discr_steps"
+                       else torch.as_tensor(flat[f"ema.{name}"]).to(
+                           v.device, torch.float32))
+                for name, v in value.items()}
         else:
-            opt[name] = int(flat[key])
-    return {"params": _restore(template_tree["params"], sub("params"),
-                               "params"),
-            "opt_state": opt, "step": int(flat["step"])}
+            out[key] = int(flat[key])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +628,13 @@ class TensorBoardLogger:
             return
         for k, v in metrics.items():
             self._writer.add_scalar(k, v, step)
+        self._writer.flush()
+
+    def images(self, tag: str, frames: np.ndarray, step: int) -> None:
+        """(N, H, W, 3) uint8 RGB frames."""
+        if self._writer is None:
+            return
+        self._writer.add_images(tag, frames, step, dataformats="NHWC")
         self._writer.flush()
 
 

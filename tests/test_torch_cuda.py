@@ -612,3 +612,136 @@ def test_bf16_training_loss_falls(gen, cuda):
         torch.float32
     assert state.opt_state["mu"]["generator"]["conv_1"]["kernel"].dtype == \
         torch.float32
+
+
+def _gan_setup(filters=16):
+    config = {
+        "flow": {"name": "flow-resnet", "num_inputs": 4,
+                 "num_filters": filters, "num_res_blocks": 1},
+        "generator": {"name": "generator-resnet", "num_filters": filters,
+                      "num_res_blocks": 1},
+        "discriminator": {"name": "discriminator", "alpha": 0.25},
+        "vgg": {"name": "vgg"},
+        "gan": {"name": "gan", "flow": {"model": "flow"},
+                "generator": {"model": "generator"},
+                "discriminator": {"model": "discriminator"},
+                "vgg": {"model": "vgg"}},
+    }
+    built = create_models(config)["gan"]
+    # Heads damped, as a trained generator's residual is small beside its
+    # bilinear skip: with glorot heads the 19-step recurrence amplifies
+    # round-off (tests/test_torch_gan.py).
+    built.params["gen"]["flow"]["conv_2"]["kernel"].mul_(0.3)
+    built.params["gen"]["generator"]["conv_trans_2"]["kernel"].mul_(0.3)
+    return built
+
+
+def _gan_grads(built, batch, noise, dev, nudge=1.0):
+    from joshupscale_torch.training import init_gan_state, make_optimizer
+    from joshupscale_torch.training.trainer import (
+        exact_float32,
+        gan_gradients,
+        gan_losses,
+        to_device,
+    )
+
+    opt = make_optimizer(1e-3)
+    state = init_gan_state(built.obj, built.params["gen"],
+                           built.params["discr"], opt, opt, dev)
+    with torch.no_grad():
+        for net in ("flow", "generator"):
+            state.gen_params[net]["conv_1"]["kernel"].mul_(nudge)
+    with exact_float32():
+        terms, _ = gan_losses(built.obj, state,
+                              {k: v.to(dev) for k, v in batch.items()},
+                              {k: v.to(dev) for k, v in noise.items()},
+                              to_device(built.params["vgg"], dev))
+        grads = gan_gradients(terms, state)
+    return ({k: v.item() for k, v in terms.items()},
+            [{p: g.cpu() for p, g in group.items()} for group in grads])
+
+
+def test_gan_step_on_card_matches_cpu(gen, cuda):
+    """The GAN step's forward and both gradient pulls in float32 (TF32
+    off) on the card against the CPU: each loss term within 1e-5
+    relative (the VGG loss, 1 - cos of near-parallel features, 1e-4);
+    each gradient within 1e-4 relative L2, or 3x the CPU's own largest
+    change under three nudges of the first convs' kernels by ~1e-7
+    where that is larger (the warp's gradient in the flow jumps where a
+    flow crosses an integer); then a whole step on each: the
+    same gate decision and ``discr_steps``."""
+    from joshupscale_torch.training import (
+        build_gan_step,
+        init_gan_state,
+        make_optimizer,
+    )
+
+    built = _gan_setup()
+    batch = {k: v for k, v in _train_batch(gen, "cpu", t=10).items()}
+    noise = built.obj.draw_noise(batch["input"].shape,
+                                 torch.Generator().manual_seed(0), "cpu")
+    t_card, g_card = _gan_grads(built, batch, noise, cuda)
+    t_cpu, g_cpu = _gan_grads(built, batch, noise, torch.device("cpu"))
+    nudges = [_gan_grads(built, batch, noise, torch.device("cpu"), n)[1]
+              for n in (1 + 1e-7, 1 - 1e-7, 1 + 2e-7)]
+    for name, v in t_cpu.items():
+        rtol = 1e-4 if name == "vgg_loss" else 1e-5
+        assert abs(t_card[name] - v) <= rtol * abs(v) + 1e-7, name
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    for i, (card, cpu) in enumerate(zip(g_card, g_cpu)):
+        self_err = max(rel(n[i][p], g) for n in nudges
+                       for p, g in cpu.items() if g.abs().max() > 0)
+        bound = max(1e-4, 3 * self_err)
+        for p, ref in cpu.items():
+            assert rel(card[p], ref) <= bound, (p, rel(card[p], ref), bound)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        gopt, dopt = make_optimizer(1e-3), make_optimizer(1e-3)
+        state = init_gan_state(built.obj, built.params["gen"],
+                               built.params["discr"], gopt, dopt, dev)
+        step = build_gan_step(built.obj, gopt, dopt, built.params["vgg"])
+        state, metrics = step(state, {k: v.to(dev) for k, v in
+                                      batch.items()},
+                              noise={k: v.to(dev) for k, v in
+                                     noise.items()})
+        out.append((state.ema["discr_steps"], state.discr_opt_state["count"],
+                    metrics["t_balance1_avg"].item()))
+    assert out[0][:2] == out[1][:2] == (1, 1)
+    assert abs(out[0][2] - out[1][2]) <= 1e-5 * abs(out[1][2]) + 1e-9
+
+
+def test_play_prediction_on_card_runs_k1_f32(gen, cuda):
+    """``predict_sequence`` of a float32 inference model (32 filters, one
+    res block per net) on an 8x8 play clip: K1 launches on the card (2
+    per res block, 18 steps) in float32, the prediction within 1e-4 of
+    the CPU's (K1's plain version there)."""
+    from joshupscale_torch.kernels.resblock import resblock_conv3x3
+    from joshupscale_torch.training.play import build_strips, predict_sequence
+
+    config = {
+        "flow": {"name": "flow-resnet", "num_inputs": 4, "num_filters": 32,
+                 "num_res_blocks": 1},
+        "generator": {"name": "generator-resnet", "num_filters": 32,
+                      "num_res_blocks": 1},
+        "inference": {"name": "inference", "flow": {"model": "flow"},
+                      "generator": {"model": "generator"},
+                      "skip_processing": True, "frame_height": 8,
+                      "frame_width": 8},
+    }
+    built = create_models(config)["inference"]
+    batch = _train_batch(gen, "cpu", t=10)
+    inputs = batch["input"].float() / 255 - 0.5
+    targets = batch["target"].float() / 255 - 0.5
+    before = resblock_conv3x3.launches
+    got = predict_sequence(built.obj, built.params, inputs.to(cuda),
+                           targets.to(cuda))
+    torch.cuda.synchronize()
+    assert resblock_conv3x3.launches - before == 2 * 2 * 18
+    ref = predict_sequence(built.obj, built.params, inputs, targets)
+    for k, v in ref.items():
+        assert float((got[k].cpu() - v).abs().max()) <= 1e-4, k
+    strips = build_strips(got, targets)
+    assert strips["comparison"].shape == (2, 18, 32, 96, 3)

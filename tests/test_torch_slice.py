@@ -233,10 +233,14 @@ def test_serving_option_matches_jax(rng, option):
 
 
 def test_unported_model_types_raise():
-    """Model types of the training slice are refused by name."""
+    """Every factory of the reference is ported (the GAN slice's
+    ``discriminator`` builds); a type the registry does not know is
+    refused by name, as the reference refuses it."""
+    assert create_models({"d": {"name": "discriminator", "alpha": 0.25}})[
+        "d"].kind == "discriminator"
     config = _config()
-    config["flow"] = {"name": "discriminator"}
-    with pytest.raises(NotImplementedError, match="discriminator"):
+    config["flow"] = {"name": "no-such-model"}
+    with pytest.raises(ValueError, match="no-such-model"):
         create_models(config)
 
 
@@ -252,6 +256,9 @@ def test_port_imports_no_jax():
             " joshupscale_torch.runtime.native_glue,"
             " joshupscale_torch.export.quantize, joshupscale_torch.parallel,"
             " joshupscale_torch.training, joshupscale_torch.training.cli,"
+            " joshupscale_torch.training.gan, joshupscale_torch.training.play,"
+            " joshupscale_torch.models.discriminator,"
+            " joshupscale_torch.models.vgg, joshupscale_torch.utils.migrate,"
             " joshupscale_torch.data\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"

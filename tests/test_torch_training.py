@@ -551,13 +551,16 @@ def test_checkpoints_cross_both_ways(rng, tmp_path, lr):
 
 
 def test_registry_builds_frvsr_trainers_and_refuses_the_gan():
-    """``frvsr`` and ``frvsr-single`` build; the GAN slice's model types
-    are refused by name."""
+    """``frvsr`` and ``frvsr-single`` build; a ``gan`` entry without its
+    generator, discriminator and VGG is refused, as the reference
+    refuses it (the GAN itself: ``tests/test_torch_gan.py``)."""
     models = create_models(_config())
     assert models["frvsr"].kind == "frvsr"
     config = _config()
     config["gan"] = {"name": "gan", "flow": {"model": "flow"}}
-    with pytest.raises(NotImplementedError, match="ROADMAP 14b"):
+    with pytest.raises(TypeError, match="generator_model"):
+        j_create_models(config)
+    with pytest.raises(TypeError, match="generator_model"):
         create_models(config)
 
 
