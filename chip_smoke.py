@@ -48,7 +48,19 @@ gradient), steps timed in float32 and bf16 (forward, backward,
 optimizer; peak memory), no kernel launched by a train step; then the
 trained params exported as a serving package (270x480, bf16) and served
 through ``create_runtime`` + ``Engine.process`` with the counts set to 0
-(68 K1 + 1 K2 a step), checked as the serving paths are.  Then it
+(68 K1 + 1 K2 a step), checked as the serving paths are.  The doors
+phase (``phase_doors``) follows the GAN phase: pair examples at the
+capture size (10 LR 270x480 + 10 HR 1080x1920 PNG frames each) written
+with the port's TFRecord writer; the FRVSR train chain on them through
+``MultiprocessLoader`` with 2 workers (held bit for bit against the
+in-process shards; batches/s; no ``/dev/shm`` segment left); the
+training CLI with ``data_workers`` 2 and 0 at full width (step times);
+its export (package, ``model.onnx``, ``model_fp16.onnx``) served
+through ``create_runtime`` (68 K1 + 1 K2 a step); ``load_trained_params``
+on the fit's checkpoint served bit for bit with the package; and the
+ONNX graphs run on the card (``run_graph_torch``) against the float32
+``Engine``: f32 within u8 max 1, fp16 and an int8 QDQ graph (ranges
+from ``calibrate`` on the card) within the card-vs-CPU bound.  Then it
 drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
@@ -98,6 +110,13 @@ TIMED_FRAMES = 53  # Engine.process latency; the first 3 are dropped
 VARIANT_FRAMES = 3  # each serving option: driven, counted, held vs CPU
 INT8_REF_FRAMES = 2  # each int8 path: held against the CPU run
 REPLAY_FRAMES = 6  # each path: replays held against eager steps
+PROFILE_SESSIONS = 3  # a profiled window's sessions, while none is traced
+# After each torch.profiler session Kineto detaches CUPTI and attaches
+# it again, lazily, at the next one.  PyTorch turns both off when it
+# profiles CUDA graphs of its own (torch/profiler/profiler.py): replayed
+# graphs are not traced reliably across a re-attach.  Every frame here
+# is a replayed graph, so main() does the same before importing torch.
+CUPTI_ENV = {"DISABLE_CUPTI_LAZY_REINIT": "1", "TEARDOWN_CUPTI": "0"}
 
 
 def log(msg: str) -> None:
@@ -318,23 +337,14 @@ def replay_kernels(torch, engine, dev_frame, n=3, trace_path=None):
     """The device events of ``n`` replayed steps under ``torch.profiler``
     (the CUDA graph's kernels, traced one by one; the trace is written
     to ``trace_path`` if given) and K1's and K2's kernels per replay."""
-    import tempfile
 
-    from torch.profiler import ProfilerActivity, profile as tprofile
+    def replays():
+        for _ in range(n):
+            engine.step(dev_frame)
 
     for _ in range(2):
         engine.step(dev_frame)
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            engine.step(dev_frame)
-        torch.cuda.synchronize()
-    if trace_path:
-        events = device_events(prof, trace_path)
-    else:
-        with tempfile.TemporaryDirectory() as d:
-            events = device_events(prof, os.path.join(d, "trace.json"))
+    prof, events = profiled(torch, replays, trace_path)
     groups = [kernel_group(e["name"]) for e in events]
     per = (groups.count("K1 resblock_conv3x3") / n,
            groups.count("K2 d2s_display_u8") / n)
@@ -755,17 +765,38 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
-def device_events(prof, path):
-    """The device kernels, copies and fills of a finished profile, whose
-    trace is written to ``path``."""
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in
+def profiled(torch, fn, trace_path=None):
+    """``fn()`` under a ``torch.profiler`` session (CPU and CUDA
+    activities), the card synchronized before and after: the profile and
+    the device kernels, copies and fills of its trace (written to
+    ``trace_path`` if given).  A session whose trace holds no device
+    event is logged and run again, ``fn`` with it, up to
+    ``PROFILE_SESSIONS`` sessions."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    for session in range(1, PROFILE_SESSIONS + 1):
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = trace_path or os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)["traceEvents"]
+        events = [e for e in trace if e.get("ph") == "X" and e.get("cat") in
                   ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not events:
-        raise RuntimeError("the profiler recorded no device activity")
-    return events
+        if events:
+            return prof, events
+        runtime = [e.get("name") for e in trace
+                   if e.get("cat") == "cuda_runtime"]
+        log(f"profiler session {session} of {PROFILE_SESSIONS} recorded no "
+            f"device activity ({len(trace)} trace events; {len(runtime)} "
+            f"CUDA runtime calls, {runtime.count('cudaGraphLaunch')} of them "
+            f"cudaGraphLaunch)")
+    raise RuntimeError(f"the profiler recorded no device activity in "
+                       f"{PROFILE_SESSIONS} sessions")
 
 
 def stages(torch, engine, frames, device):
@@ -809,20 +840,9 @@ def time_stages(torch, name, engine, frames, device):
 def profile_stages(torch, name, engine, frames, device, split):
     """Each stage profiled over 3 calls, kernels grouped by
     ``kernel_group``, into ``split``."""
-    import tempfile
-
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     for stage, fn in stages(torch, engine, frames, device).items():
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
+        _, events = profiled(torch, lambda: [fn() for _ in range(3)])
         groups = {}
-        with tempfile.TemporaryDirectory() as d:
-            events = device_events(prof, os.path.join(d, "trace.json"))
         for e in events:
             key = kernel_group(e["name"])
             groups[key] = groups.get(key, 0.0) + e["dur"] / 3e3
@@ -1327,16 +1347,23 @@ def train_card_vs_cpu(torch, setup, batch_np, seed):
 
 def serve_trained(torch, name, config, setup, state, seed, device):
     """The trained params exported through the CLI's ``_export``
-    (270x480, bf16) and served through ``create_runtime`` +
-    ``Engine.process`` with the launch counts set to 0 first: 68 K1 + 1
-    K2 a step, output not clipped flat, frames against the same package
-    on the CPU, replays equal to eager steps.  Returns the launches and
-    ``(engine, frames)``."""
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
+    (270x480, bf16) and served (``serve_package``)."""
     from joshupscale_torch.training.cli import _export
 
     _export(config["export"], config, setup.models, setup.built, state)
-    package = os.path.join(config["export"]["dir"], "package")
+    return serve_package(torch, name,
+                         os.path.join(config["export"]["dir"], "package"),
+                         seed, device)
+
+
+def serve_package(torch, name, package, seed, device):
+    """A package served through ``create_runtime`` + ``Engine.process``
+    with the launch counts set to 0 first: 68 K1 + 1 K2 a step, output
+    not clipped flat, frames against the same package on the CPU,
+    replays equal to eager steps.  Returns the launches and ``(engine,
+    frames)``."""
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
+
     frames = frames_for(FRAMES, seed)
     kernels = all_kernels()
     for k in kernels:
@@ -1463,8 +1490,6 @@ def profile_train(torch, seed, device, step_ms, label="train",
     profile of 2 steps after 2 warm-up steps, in float32 and bf16; the
     idle share against the unprofiled step median (``step_ms``).
     ``build(dtype)`` makes the setup (default: the FRVSR phase's)."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     from joshupscale_torch.training.cli import build_training
     from joshupscale_torch.training.trainer import device_normalize
 
@@ -1481,16 +1506,12 @@ def profile_train(torch, seed, device, step_ms, label="train",
         noise = setup.built.obj.draw_noise(
             batch["input"].shape, torch.Generator(device).manual_seed(seed),
             device)
-        for _ in range(2):
-            setup.step(setup.state, batch, noise=noise)
-        torch.cuda.synchronize()
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        def steps():
             for _ in range(2):
                 setup.step(setup.state, batch, noise=noise)
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            events = device_events(prof, os.path.join(d, "trace.json"))
+
+        steps()
+        _, events = profiled(torch, steps)
         groups = {}
         for e in events:
             key = kernel_group(e["name"])
@@ -1921,6 +1942,292 @@ def phase_gan(torch, seed, device, out_dir):
     return res
 
 
+DOOR_EXAMPLES = 8  # pair examples written to the TFRecord file
+DOOR_BATCHES = 6  # loader batches held against the in-process shards
+DOOR_TIMED_BATCHES = 8  # loader batches timed alone, after those
+DOOR_ONNX_FRAMES = 4  # each ONNX graph: a clip, a reset(), the clip again
+# configs/frvsr_quality.yaml's train_dataset with the TFRecord source and
+# the pair parser in place of LocalDatasetOp.
+DOOR_CHAIN_TAIL = [
+    {"name": "RandomCropOp", "crop_size": TRAIN_CROP, "num_img": 4},
+    {"name": "NormalizeOp", "crop_size": TRAIN_CROP},
+    {"name": "FilterFlatOp", "threshold": 0.02},
+    {"name": "RandomHorizontalFlipOp", "threshold": 0.5},
+    {"name": "RandomVerticalFlipOp", "threshold": 0.5},
+    {"name": "ClipOp", "minval": -0.5, "maxval": 0.5},
+    {"name": "ShuffleOp", "shuffle_window": 64},
+    {"name": "RepeatOp"},
+]
+
+
+def door_records(path, n, seed):
+    """``n`` pair examples at the capture size, written with the port's
+    TFRecord writer: 10 LR 270x480 and 10 HR 1080x1920 frames each,
+    PNG-encoded (cv2), smooth patterns moving at a random velocity plus
+    noise, the LR the 4x4 mean of the HR.  Returns the file's bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+
+    from joshupscale_torch.data.tfrecord import encode_example, write_records
+
+    rng = np.random.default_rng(seed)
+    hh, ww = 4 * H, 4 * W
+    y, x = np.arange(hh, dtype=np.float32), np.arange(ww, dtype=np.float32)
+    noise = rng.integers(-6, 7, (hh, ww, 3)).astype(np.float32)
+    png = lambda f: cv2.imencode(".png", f)[1].tobytes()  # noqa: E731
+    # numpy and cv2 work outside the interpreter lock: a thread a core.
+    pool = ThreadPoolExecutor(os.cpu_count() or 4)
+
+    def frame(t, phase, vy, vx):
+        """One HR frame and its LR, PNG-encoded."""
+        img = np.stack([np.outer(np.cos((y + vy * t) * 0.013 - p),
+                                 np.sin((x + vx * t) * 0.011 + p))
+                        for p in phase], -1)
+        img = 127.5 + 110 * img + np.roll(noise, 37 * t, axis=1)
+        hr = np.clip(img, 0, 255).astype(np.uint8)
+        lr = hr.reshape(H, 4, W, 4, 3).mean((1, 3)).astype(np.uint8)
+        return png(lr), png(hr)
+
+    def example():
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        # At least 2 HR pixels a frame each way: FilterFlatOp keeps it.
+        vy, vx = rng.choice([-1, 1], 2) * rng.uniform(2, 8, 2)
+        pairs = list(pool.map(lambda t: frame(t, phase, vy, vx),
+                              range(TRAIN_T)))
+        return encode_example({"input": [lr for lr, _ in pairs],
+                               "target": [hr for _, hr in pairs]})
+
+    with pool:
+        write_records(path, (example() for _ in range(n)))
+    return os.path.getsize(path)
+
+
+def shm_segments():
+    return {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+
+
+def door_loader(torch, chain, seed):
+    """``create_train_dataset(num_workers=2)`` with the parent holding a
+    CUDA context: the first ``DOOR_BATCHES`` batches against the
+    in-process ``create_dataset(shard=(2, i))`` streams taken round
+    robin (bit for bit), then ``DOOR_TIMED_BATCHES`` batches timed
+    alone; closed, it must leave no ``/dev/shm`` segment.  Returns the
+    batches/s."""
+    import shutil
+
+    from joshupscale_torch.data.pipeline import (
+        create_dataset,
+        create_train_dataset,
+    )
+
+    if not torch.cuda.is_initialized():
+        raise AssertionError("doors: the parent holds no CUDA context")
+    free = shutil.disk_usage("/dev/shm").free / 2 ** 30
+    shards = [iter(create_dataset(
+        chain + [{"name": "BatchOp", "batch_size": TRAIN_BATCH}],
+        seed=seed, shard=(2, i))) for i in (0, 1)]
+    local = [next(shards[i % 2]) for i in range(DOOR_BATCHES)]
+    before = shm_segments()
+    t0 = time.perf_counter()
+    it = iter(create_train_dataset(chain, TRAIN_BATCH, seed=seed,
+                                   num_workers=2))
+    got = [next(it)]
+    first_s = time.perf_counter() - t0
+    got += [next(it) for _ in range(DOOR_BATCHES - 1)]
+    same = all(np.array_equal(g[k], w[k]) and g[k].dtype == w[k].dtype
+               for g, w in zip(got, local) for k in ("input", "target"))
+    t1 = time.perf_counter()
+    for _ in range(DOOR_TIMED_BATCHES):
+        next(it)
+    rate = DOOR_TIMED_BATCHES / (time.perf_counter() - t1)
+    it.close()
+    left = len(shm_segments() - before)
+    log(f"doors loader (2 workers, spawn, parent holds a CUDA context; "
+        f"/dev/shm {free:.1f} GiB free): first batch after {first_s:.2f} s, "
+        f"then {rate:.2f} batches/s of {tuple(got[0]['input'].shape)} -> "
+        f"{tuple(got[0]['target'].shape)} float32 alone; first "
+        f"{DOOR_BATCHES} batches bit for bit with the in-process shards "
+        f"(shard=(2, i), round robin): {same}; /dev/shm segments left "
+        f"after close: {left}")
+    if not same or left:
+        raise AssertionError("doors: the loader's stream or its cleanup "
+                             "is wrong")
+    return rate
+
+
+def door_fit(torch, chain, out_dir, workers, seed, device, export):
+    """``training.cli.train`` on the TFRecord chain at full width
+    (``TRAIN_MODELS``, float32), 2 epochs x 3 steps with checkpoints and
+    ``data_workers``; the step time is epoch 1's time over its steps
+    (epoch 0 holds the warm-up and the loader's start).  With
+    ``export``: weights, the package (270x480, bf16), ``model.onnx``
+    and ``model_fp16.onnx``."""
+    from joshupscale_torch.training import cli
+
+    models = json.loads(json.dumps(TRAIN_MODELS))
+    ckpt = os.path.join(out_dir, f"ckpt_w{workers}")
+    config = {"models": models, "train_dataset": chain,
+              "train": {"model": "frvsr", "batch_size": TRAIN_BATCH,
+                        "epochs": TRAIN_EPOCHS,
+                        "steps_per_epoch": TRAIN_STEPS,
+                        "data_workers": workers, "checkpoint_dir": ckpt,
+                        "tensorboard": False}}
+    if export:
+        config["export"] = {
+            "dir": os.path.join(out_dir, "export"), "model": "inference",
+            "onnx": True, "onnx_fp16": True,
+            "overrides": {"frame_height": H, "frame_width": W,
+                          "compute_dtype": "bfloat16"}}
+    t0 = time.perf_counter()
+    if cli.train(config, seed=seed, device=device) != 0:
+        raise AssertionError("doors: the training CLI failed")
+    with open(os.path.join(ckpt, "history.json")) as f:
+        history = json.load(f)
+    losses = [e["train_loss"] for e in history]
+    step_ms = history[-1]["time"] / TRAIN_STEPS * 1e3
+    log(f"doors fit (data_workers {workers}): {len(history)} epochs, losses "
+        f"{['%.5f' % x for x in losses]}, step {step_ms:.1f} ms (epoch 1 "
+        f"over {TRAIN_STEPS} steps), train() took "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(history) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError("doors: the fit did not run as expected")
+    return {"step_ms": step_ms,
+            "checkpoint": os.path.join(ckpt, "latest.npz")}
+
+
+def door_onnx(torch, name, path, engine, frames, bound=None):
+    """``OnnxClipRunner`` over ``path`` with its default executor
+    (``run_graph_torch`` on the card), against ``engine`` (float32, the
+    same params): the clip, a ``reset()`` of both, the clip again.
+    ``bound`` (u8 max) or the card-vs-CPU gate a frame.  Returns the
+    worst u8 diff and the runner's ms a frame."""
+    from joshupscale_torch.export.onnx_interp import OnnxClipRunner
+
+    runner = OnnxClipRunner(path, H, W)
+    worst, times = 0, []
+    for rep in range(2):
+        runner.reset()
+        engine.reset()
+        for i, f in enumerate(frames):
+            t0 = time.perf_counter()
+            got = runner.process(f)
+            times.append(time.perf_counter() - t0)
+            ref = engine.process(f)
+            d = int(np.abs(got.astype(np.int32) - ref).max())
+            worst = max(worst, d)
+            if bound is None:
+                card_vs_cpu(name, f"frame {i} (pass {rep})", got, ref,
+                            against="Engine float32")
+            elif d > bound:
+                raise AssertionError(f"{name}: frame {i} (pass {rep}) u8 max "
+                                     f"diff {d} > {bound}")
+    ms = float(np.median(times[1:])) * 1e3
+    log(f"{name}: {len(times)} frames on the card through run_graph_torch "
+        f"(a reset() after {len(frames)}) vs Engine float32: worst u8 max "
+        f"diff {worst}{'' if bound is None else f' (bound {bound})'}; "
+        f"runner {ms:.1f} ms a frame (median, host clock)")
+    return worst, ms
+
+
+def phase_doors(torch, seed, device, out_dir):
+    """The doors in and out, at the full width of
+    ``configs/frvsr_quality.yaml``: pair examples at the capture size
+    written with the port's TFRecord writer; its train chain with the
+    TFRecord source through ``MultiprocessLoader`` (2 workers) against
+    the in-process shards; ``training.cli.train`` with ``data_workers``
+    2 and 0 (step times); the export (package, ``model.onnx``,
+    ``model_fp16.onnx``) served through ``create_runtime`` (68 K1 + 1 K2
+    a frame, replays bit for bit); ``load_trained_params`` on the fit's
+    checkpoint served bit for bit with the package; the ONNX graphs on
+    the card through ``run_graph_torch`` against the float32 ``Engine``
+    (f32 within u8 max 1; fp16 and an int8 QDQ graph from ``calibrate``
+    on the card within the card-vs-CPU gate).  The h5 door is not
+    driven: the card run does not depend on h5py (the CPU tests hold
+    it)."""
+    from joshupscale_torch.export.importer import load_trained_params
+    from joshupscale_torch.export.onnx_export import export_onnx
+    from joshupscale_torch.export.package import load_package
+    from joshupscale_torch.export.quantize import calibrate
+    from joshupscale_torch.models.registry import create_models
+    from joshupscale_torch.runtime.engine import Engine, WARMUP_STEPS
+
+    t0 = time.perf_counter()
+    out_dir = os.path.join(out_dir, "doors")
+    os.makedirs(out_dir, exist_ok=True)
+    records = os.path.join(out_dir, "pairs.tfrecords")
+    size = door_records(records, DOOR_EXAMPLES, seed)
+    log(f"doors records: {DOOR_EXAMPLES} pair examples of {TRAIN_T} LR "
+        f"{H}x{W} + {TRAIN_T} HR {4 * H}x{4 * W} PNG frames, "
+        f"{size / 2 ** 20:.1f} MiB, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    chain = [{"name": "TFRecordDatasetOp", "path": records},
+             {"name": "ParsePairExampleOp"}] + DOOR_CHAIN_TAIL
+    res = {"loader_batches_per_s": door_loader(torch, chain, seed)}
+    res["fit"] = door_fit(torch, chain, out_dir, 2, seed, device,
+                          export=True)
+    res["fit_workers0"] = door_fit(torch, chain, out_dir, 0, seed, device,
+                                   export=False)
+    log(f"doors fit step: data_workers 2 {res['fit']['step_ms']:.1f} ms vs "
+        f"data_workers 0 {res['fit_workers0']['step_ms']:.1f} ms")
+
+    export = os.path.join(out_dir, "export")
+    res["export_launches"], res["engine"] = serve_package(
+        torch, "doors export", os.path.join(export, "package"), seed, device)
+    engine, frames = res["engine"]
+
+    # load_trained_params on the fit's checkpoint (the params. prefix).
+    model, template = load_package(os.path.join(export, "package"))
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    loaded = Engine(model, load_trained_params(res["fit"]["checkpoint"],
+                                               template), device=device)
+    engine.reset()
+    same = all(np.array_equal(loaded.process(f), engine.process(f))
+               for f in frames)
+    torch.cuda.synchronize()
+    k1, k2 = kernels[0].launches, kernels[1].launches
+    res["loaded_launches"] = (k1, k2)
+    log(f"doors load_trained_params (prefix 'params' of the fit's "
+        f"latest.npz) through Engine: {len(frames)} frames bit for bit with "
+        f"the package's: {same}; K1 {k1}, K2 {k2} "
+        f"({(k1 / (WARMUP_STEPS + 1)):g} + {k2 / (WARMUP_STEPS + 1):g} a "
+        f"step)")
+    if not same or (k1, k2) != (K1_PER_FRAME * (WARMUP_STEPS + 1),
+                                WARMUP_STEPS + 1):
+        raise AssertionError("doors: load_trained_params does not serve the "
+                             "package's frames")
+    del loaded
+
+    # The ONNX graphs against the float32 engine of the same params.
+    f32_cfg = json.loads(json.dumps(TRAIN_MODELS))
+    f32_cfg["inference"].update(skip_processing=False, frame_height=H,
+                                frame_width=W, compute_dtype="float32")
+    f32 = create_models(f32_cfg, seed=0)["inference"]
+    params = load_trained_params(res["fit"]["checkpoint"], f32.params)
+    ref = Engine(f32.obj, params, device=device)
+    clip = frames[:DOOR_ONNX_FRAMES]
+    res["onnx_f32"] = door_onnx(torch, "doors onnx f32",
+                                os.path.join(export, "model.onnx"), ref,
+                                clip, bound=1)
+    res["onnx_fp16"] = door_onnx(torch, "doors onnx fp16",
+                                 os.path.join(export, "model_fp16.onnx"),
+                                 ref, clip)
+    ranges = calibrate(f32.obj, params, frames[:DOOR_ONNX_FRAMES, None],
+                       device=device)
+    int8_path = os.path.join(out_dir, "model_int8.onnx")
+    export_onnx(int8_path, params, H, W, int8_ranges=ranges)
+    res["onnx_int8"] = door_onnx(torch, f"doors onnx int8 QDQ ({len(ranges)} "
+                                 f"convs calibrated on the card)", int8_path,
+                                 ref, clip)
+    log("doors h5: not driven on the card (the card run does not depend on "
+        "h5py); tests/test_torch_importer.py holds the door on the CPU")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"doors: phase took {res['seconds']:.1f} s")
+    return res
+
+
 def to_cpu(torch, tree):
     if isinstance(tree, dict):
         return {k: to_cpu(torch, v) for k, v in tree.items()}
@@ -2022,6 +2329,7 @@ def main() -> int:
     ap.add_argument("--profile", default=None)
     args = ap.parse_args()
 
+    os.environ.update(CUPTI_ENV)
     import torch
 
     if not torch.cuda.is_available():
@@ -2075,8 +2383,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as train_dir:
         train = phase_train(torch, args.seed, device, train_dir)
         gan = phase_gan(torch, args.seed, device, train_dir)
+        doors = phase_doors(torch, args.seed, device, train_dir)
     paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
     paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
+    paths["doors export"] = (*doors.pop("engine"), K1_PER_FRAME, 1)
     probes, p1_launches, p2_launches = phase_conv_probe(
         torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
         times["lib_ms"])
@@ -2110,6 +2420,8 @@ def main() -> int:
                   for name in ("sharded x2", "sharded x4", "pipelined")},
                "trained export": train["export_launches"],
                "gan export": gan["export_launches"],
+               "doors export": doors["export_launches"],
+               "doors load_trained_params": doors["loaded_launches"],
                "gan play (one prediction, f32)": (gan["play_k1"], 0)}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
                                                k1_n2["conv_2"])
@@ -2224,6 +2536,16 @@ def main() -> int:
             f"{p['busy_ms']:.2f} ms (idle share {p['idle_share']:.3f}), "
             f"discriminator trained {t['discr_steps']} of {t['steps']} "
             f"steps on {card}")
+    fit2, fit0 = doors["fit"], doors["fit_workers0"]
+    log(f"doors (flow 64x10, generator 64x24, batch {TRAIN_BATCH}, T = "
+        f"{TRAIN_T}, crop {TRAIN_CROP}, TFRecords of PNG frames): loader "
+        f"{doors['loader_batches_per_s']:.2f} batches/s alone (2 "
+        f"workers); fit step {fit2['step_ms']:.1f} ms with data_workers 2, "
+        f"{fit0['step_ms']:.1f} ms with 0; ONNX on the card vs Engine "
+        f"float32: f32 max {doors['onnx_f32'][0]}, fp16 max "
+        f"{doors['onnx_fp16'][0]}, int8 QDQ max {doors['onnx_int8'][0]}; "
+        f"runner {doors['onnx_f32'][1]:.1f} ms a frame (f32); phase "
+        f"{doors['seconds']:.1f} s on {card}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,14 +5,18 @@ reference package cannot be imported without jax): a YAML list of ops
 is chained into a stream of ``{"input", "target"[, "last"]}`` dicts of
 numpy arrays, with the reference's op names, config keys and seeded
 randomness, so the same config and seed give the same batches on both
-sides.  The TFRecord source and Example parsers, and the multiprocess
-loader (``num_workers`` > 0), are not ported yet (ROADMAP 14c): they
-raise ``NotImplementedError``.
+sides.  TFRecords are always read through the port's own codec
+(``data/tfrecord.py``; the port never imports tensorflow), and encoded
+images are decoded with cv2, else PIL.  ``create_dataset(shard=(n,
+i))`` keeps every n-th element of the source for worker ``i`` of the
+multiprocess loader (``data/mploader.py``), which
+``create_train_dataset(num_workers >= 1)`` returns.
 """
 
 from __future__ import annotations
 
 import glob as globlib
+import itertools
 import os
 import queue
 import threading
@@ -92,13 +96,40 @@ class ListShuffleOp(DatasetOp):
         return out
 
 
-class _NotPortedOp(DatasetOp):
-    """An op of the reference that waits for its ROADMAP item."""
+class TFRecordDatasetOp(DatasetOp):
+    """TFRecord source (reference dataset.py:50-68), read through the
+    port's codec (:mod:`joshupscale_torch.data.tfrecord`).
 
-    def __init__(self, name: str, **kw):
-        raise NotImplementedError(
-            f"{name} (TFRecord input) is not ported yet; it waits for "
-            f"ROADMAP 14c (mploader and the TFRecord ops)")
+    ``path`` is one file or a list of files.  ``pure_python`` is the
+    reference's switch away from its tensorflow reader; the port has
+    only this reader and accepts the key.  Compressed files
+    (``compression_type``) need tensorflow and raise ``ValueError``;
+    tf.data's other reader keys are ignored.
+    """
+
+    def __init__(self, name: str, path=None, pure_python: bool = False,
+                 compression_type: Optional[str] = None, **kw):
+        super().__init__(name)
+        if compression_type:
+            raise ValueError(
+                f"compressed TFRecords (compression_type="
+                f"{compression_type!r}) need tensorflow, which the port "
+                f"does not use")
+        self.path = path
+
+    def __call__(self, data):
+        path = self.path if self.path is not None else data
+        if path is None:
+            raise ValueError("Dataset path is not defined")
+        from joshupscale_torch.data.tfrecord import read_records
+
+        paths = path if isinstance(path, (list, tuple)) else [path]
+
+        def gen():
+            for p in paths:
+                yield from read_records(p)
+
+        return _Restartable(gen)
 
 
 class LocalDatasetOp(DatasetOp):
@@ -266,6 +297,74 @@ class RandomCondMapOp(MapOp):
         if self.rng.random() < self.threshold:
             return self.true_fn(data)
         return data
+
+
+def _to_rgb3(img: np.ndarray) -> np.ndarray:
+    """(H,W), (H,W,1), (H,W,3) or (H,W,4) uint8 -> (H,W,3) RGB."""
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.shape[-1] == 1:
+        return np.repeat(img, 3, axis=-1)
+    if img.shape[-1] == 4:
+        return np.ascontiguousarray(img[:, :, :3])
+    if img.shape[-1] != 3:
+        raise ValueError(f"Unsupported channel count {img.shape[-1]}")
+    return img
+
+
+def _decode_image_rgb(data: bytes) -> np.ndarray:
+    """Decode an encoded image to RGB uint8 (tf.io.decode_image order):
+    cv2, else PIL."""
+    try:
+        import cv2
+
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError("Cannot decode image bytes")
+        return img[:, :, ::-1]
+    except ImportError:
+        import io
+
+        from PIL import Image
+
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _parse_image_example(data: bytes,
+                         spec: Dict[str, int]) -> Dict[str, np.ndarray]:
+    """parse_single_example + decode_image: ``spec`` maps a feature name
+    to its FixedLenFeature list length (reference dataset.py:194-216).
+    Returns stacked (N,H,W,3) uint8 RGB arrays."""
+    from joshupscale_torch.data.tfrecord import parse_fixed_len
+
+    parsed = parse_fixed_len(data, spec)
+    return {
+        k: np.stack([_to_rgb3(_decode_image_rgb(x)) for x in parsed[k]])
+        for k in spec
+    }
+
+
+class ParsePairExampleOp(MapOp):
+    """tf.train.Example with 10 encoded input/target PNGs each.
+    ``pure_python`` is accepted (see ``TFRecordDatasetOp``)."""
+
+    def __init__(self, name: str, pure_python: bool = False, **kw):
+        super().__init__(name, **kw)
+
+    def map_fn(self, data):
+        return _parse_image_example(data, {"input": 10, "target": 10})
+
+
+class ParseSingleExampleOp(MapOp):
+    """HR-only examples; LR derived by nearest x1/4 downscale
+    (TF1 grid: plain ::4 subsampling)."""
+
+    def __init__(self, name: str, pure_python: bool = False, **kw):
+        super().__init__(name, **kw)
+
+    def map_fn(self, data):
+        images = _parse_image_example(data, {"images": 10})["images"]
+        return {"input": images[:, ::4, ::4, :], "target": images}
 
 
 class RandomCropOp(FlatMapOp):
@@ -693,10 +792,10 @@ class OptionsOp(DatasetOp):
 DATASET_OPS: Dict[str, type] = {
     "GlobOp": GlobOp,
     "ListShuffleOp": ListShuffleOp,
-    "TFRecordDatasetOp": _NotPortedOp,
+    "TFRecordDatasetOp": TFRecordDatasetOp,
     "LocalDatasetOp": LocalDatasetOp,
-    "ParsePairExampleOp": _NotPortedOp,
-    "ParseSingleExampleOp": _NotPortedOp,
+    "ParsePairExampleOp": ParsePairExampleOp,
+    "ParseSingleExampleOp": ParseSingleExampleOp,
     "RandomCropOp": RandomCropOp,
     "NormalizeOp": NormalizeOp,
     "FilterFlatOp": FilterFlatOp,
@@ -721,8 +820,27 @@ DATASET_OPS: Dict[str, type] = {
 }
 
 
+def _shard_stream(data, num_shards: int, index: int):
+    """Restrict a source's output to every ``num_shards``-th element.
+
+    Used by the multiprocess loader: worker ``index`` consumes elements
+    ``index, index+num_shards, ...`` of the first op's output (a file
+    list, record stream, or sequence stream), so the union over all
+    workers is exactly one pass over the source.
+    """
+    if isinstance(data, (list, tuple)):
+        return list(data)[index::num_shards]
+    src = data
+
+    def gen():
+        yield from itertools.islice(iter(src), index, None, num_shards)
+
+    return _Restartable(gen)
+
+
 def create_dataset(config: List[Dict[str, Any]],
-                   seed: Optional[Any] = None):
+                   seed: Optional[Any] = None,
+                   shard: Optional[Tuple[int, int]] = None):
     """Build an iterable dataset from an op-chain config.
 
     ``seed`` (int or ``np.random.SeedSequence``) makes every random op
@@ -730,14 +848,35 @@ def create_dataset(config: List[Dict[str, Any]],
     config + seed reproduces the exact element stream, shuffle order
     and augmentation draws included (reference ``train_local.py:78-79``
     seeds keras/np/random globally for the same guarantee).
+    ``shard=(n, i)`` keeps every n-th element of the FIRST op's output
+    (worker sharding; see :mod:`joshupscale_torch.data.mploader`).
+
+    Sharded seeding contract: every worker must pass the SAME ``seed``
+    with its own ``shard=(n, i)``.  The SOURCE op's child seed is then
+    identical across workers -- so all workers see one shared source
+    order and the strided shards are disjoint and exactly cover it --
+    while every DOWNSTREAM op's child is re-spawned per shard index, so
+    crop/noise/flip draws decorrelate across workers.  (Seeding the
+    source per-worker would shard n different permutations: some groups
+    repeated, others dropped -- silently biased epochs.)
     """
     data = None
     seq = None
     if seed is not None:
         seq = (seed if isinstance(seed, np.random.SeedSequence)
                else np.random.SeedSequence(seed))
+    if shard is not None and shard[0] > 1 and seq is None:
+        # Unseeded workers would each draw their own source shuffle, so
+        # the strided shards would come from different permutations.
+        raise ValueError(
+            "shard=(n, i) with n > 1 requires a seed: unseeded shards "
+            "draw independent source orders and do not partition the "
+            "dataset")
     children = (seq.spawn(len(config)) if seq is not None
                 else [None] * len(config))
+    if shard is not None and seq is not None:
+        n, i = shard
+        children = [children[0]] + [c.spawn(n)[i] for c in children[1:]]
     for idx, op_config in enumerate(config):
         if "name" not in op_config:
             raise ValueError("Op name is not defined")
@@ -755,6 +894,8 @@ def create_dataset(config: List[Dict[str, Any]],
         finally:
             stack.pop()
         data = op(data)
+        if idx == 0 and shard is not None:
+            data = _shard_stream(data, *shard)
     if data is None:
         raise ValueError("Invalid dataset config")
     return data
@@ -765,15 +906,23 @@ def create_train_dataset(config: List[Dict[str, Any]], batch_size: int,
                          num_workers: int = 0, prefetch: int = 2):
     """Training stream: config + batch + prefetch (reference :657-663).
 
-    ``num_workers >= 1`` (the reference's multiprocess loader) is not
-    ported yet (ROADMAP 14c).
+    ``num_workers >= 1`` runs the whole pipeline in that many worker
+    processes over disjoint source shards, batches crossing in shared
+    memory (:class:`joshupscale_torch.data.mploader.MultiprocessLoader`);
+    0 keeps the in-process pipeline with a background prefetch thread.
     """
     if num_workers and num_workers >= 1:
-        raise NotImplementedError(
-            "data_workers > 0 (the multiprocess loader) is not ported "
-            "yet; it waits for ROADMAP 14c")
+        from joshupscale_torch.data.mploader import (
+            ConfigPipelineFactory,
+            MultiprocessLoader,
+        )
+
+        return MultiprocessLoader(
+            ConfigPipelineFactory(config, batch_size),
+            num_workers=num_workers, seed=seed, prefetch=prefetch)
     return create_dataset(config + [
         {"name": "BatchOp", "batch_size": batch_size},
+        # Same knob as the multiprocess path's queue depth.
         {"name": "PrefetchOp", "buffer_size": max(int(prefetch), 1)},
     ], seed=seed)
 

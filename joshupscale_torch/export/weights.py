@@ -43,16 +43,22 @@ def _convert(path: str, arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=dtype))
 
 
-def from_flat_numpy(flat: Dict[str, np.ndarray]):
-    """Dotted-path numpy dict -> the port's nested param dict."""
+def nest_flat(flat: Dict[str, np.ndarray]) -> dict:
+    """Dotted-path dict -> nested dict, leaves as they are."""
     tree: dict = {}
     for path, arr in flat.items():
         node = tree
         keys = path.split(".")
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = _convert(path, arr)
+        node[keys[-1]] = arr
     return tree
+
+
+def from_flat_numpy(flat: Dict[str, np.ndarray]):
+    """Dotted-path numpy dict -> the port's nested param dict."""
+    return nest_flat({path: _convert(path, arr)
+                      for path, arr in flat.items()})
 
 
 def _export(path: str, t: torch.Tensor) -> np.ndarray:
@@ -68,7 +74,9 @@ def _export(path: str, t: torch.Tensor) -> np.ndarray:
         arr = arr.reshape(in_ch, 2, 2, out4 // 4).transpose(1, 2, 3, 0)
     elif is_kernel and arr.ndim == 4:
         arr = arr.transpose(1, 2, 3, 0)  # OHWI -> HWIO
-    return np.ascontiguousarray(arr)
+    # ascontiguousarray makes a 0-d array 1-d: scalars (fade counters)
+    # keep the reference's shape ().
+    return np.ascontiguousarray(arr) if arr.ndim else arr
 
 
 def to_flat_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:

@@ -10,11 +10,13 @@ config has ``models:`` (registry entries), ``train_dataset:`` /
 each with its freeze mask), the step, the state and the validation
 function; ``train`` adds the datasets, the play callback (GIF strips of
 the inference entry on the play clips, when the trainer names one and a
-validation set is given), the fit loop and the export.  Runs on the
-CUDA device unless ``--cpu``.  Not ported yet, each raising where a
-config asks for it: the data-parallel mesh (``--num-devices`` > 1,
-ROADMAP 14d) and ``export.onnx`` (ROADMAP 15); the reference's profiler
-window does not run.
+validation set is given), the fit loop and the export: ``weights.npz``,
+a serving package and, under ``export.onnx`` (``onnx_fp16``), the
+deployment graph ``model.onnx`` (``model_fp16.onnx``).
+``train.data_workers`` > 0 runs the data pipeline in that many worker
+processes (``data/mploader.py``).  Runs on the CUDA device unless
+``--cpu``.  Not ported yet: the data-parallel mesh (``--num-devices`` >
+1 raises, ROADMAP 14d); the reference's profiler window does not run.
 
 Usage: ``python -m joshupscale_torch.training.cli -c config.yaml [--cpu]``
 """
@@ -240,18 +242,24 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
         state = type(state)(**load_checkpoint(resume, state.tree()))
         print(f"resumed from {resume}")
 
-    state, _ = fit(
-        setup.step, state, iter(train_ds),
-        epochs=int(train_cfg.get("epochs", 1)),
-        steps_per_epoch=int(train_cfg.get("steps_per_epoch", 100)),
-        rng=torch.Generator(setup.device).manual_seed(seed),
-        val_fn=setup.val_fn if val_ds is not None else None,
-        val_data=val_ds, cache_val_on_device=True,
-        checkpoint_dir=ckpt_dir, monitor=setup.monitor,
-        early_stopping_patience=train_cfg.get("early_stopping_patience"),
-        epoch_callback=play_cb, tensorboard_dir=tb_dir,
-        metric_lag=train_cfg.get("metric_lag"),
-        stage_inputs=bool(train_cfg.get("stage_inputs", True)))
+    # Closed after the fit: a multiprocess loader's workers stop and
+    # their shared-memory segments are unlinked.
+    train_iter = iter(train_ds)
+    try:
+        state, _ = fit(
+            setup.step, state, train_iter,
+            epochs=int(train_cfg.get("epochs", 1)),
+            steps_per_epoch=int(train_cfg.get("steps_per_epoch", 100)),
+            rng=torch.Generator(setup.device).manual_seed(seed),
+            val_fn=setup.val_fn if val_ds is not None else None,
+            val_data=val_ds, cache_val_on_device=True,
+            checkpoint_dir=ckpt_dir, monitor=setup.monitor,
+            early_stopping_patience=train_cfg.get("early_stopping_patience"),
+            epoch_callback=play_cb, tensorboard_dir=tb_dir,
+            metric_lag=train_cfg.get("metric_lag"),
+            stage_inputs=bool(train_cfg.get("stage_inputs", True)))
+    finally:
+        train_iter.close()
 
     export_cfg = config.get("export")
     if export_cfg:
@@ -264,11 +272,11 @@ def _export(export_cfg, config, models, built: BuiltModel, state) -> None:
     of the inference entry carrying them (``package/``): the config cut
     to what the inference entry reaches, with ``skip_processing:
     false`` (the runtime feeds u8 frames) and ``export.overrides``
-    merged into its entry."""
-    if export_cfg.get("onnx"):
-        raise NotImplementedError(
-            "export.onnx is not ported yet; it waits for ROADMAP 15 (the "
-            "import/export doors)")
+    merged into its entry.  ``export.onnx`` also writes the package's
+    model as the reference's deployment graph (``model.onnx``; with
+    ``onnx_fp16``, ``model_fp16.onnx`` too), with the model's options;
+    an architecture the exporter does not take (``_onnx_unsupported``)
+    is skipped, printed."""
     out_dir = export_cfg.get("dir", "export")
     os.makedirs(out_dir, exist_ok=True)
     trained = state.gen_params if built.kind == "gan" else state.params
@@ -306,6 +314,59 @@ def _export(export_cfg, config, models, built: BuiltModel, state) -> None:
     save_package(os.path.join(out_dir, "package"), model_cfg, rebuilt,
                  inference_name=inf_key)
     print(f"exported package to {out_dir}/package")
+    if export_cfg.get("onnx"):
+        _export_onnx(out_dir, rebuilt, bool(export_cfg.get("onnx_fp16")),
+                     _onnx_unsupported(model_cfg, inf_key))
+
+
+# The model types ``export_onnx`` writes a graph for, by role in an
+# ``inference`` entry.
+_ONNX_ARCH = {"flow": ("flow-resnet", "flow-autoencoder"),
+              "generator": ("generator-resnet",)}
+
+
+def _onnx_unsupported(model_cfg: Dict[str, Any],
+                      inf_key: str) -> Optional[str]:
+    """What of the inference entry ``model_cfg[inf_key]`` the ONNX
+    exporter does not take, or None: it writes a model whose flow net
+    (unless ``remove_flow``) and generator are of the types in
+    ``_ONNX_ARCH``."""
+    entry = model_cfg[inf_key]
+    for role, kinds in _ONNX_ARCH.items():
+        ref = entry.get(role)
+        if not isinstance(ref, dict) or (role == "flow"
+                                          and entry.get("remove_flow")):
+            continue
+        kind = model_cfg[ref["model"]]["name"]
+        if kind not in kinds:
+            return f"{role} {kind}"
+    return None
+
+
+def _export_onnx(out_dir: str, built: BuiltModel, fp16: bool,
+                 unsupported: Optional[str]) -> None:
+    """``model.onnx`` (and ``model_fp16.onnx``) of a built inference
+    model, with its deployment options (the reference's exit door into
+    its TensorRT toolchain, train_local.py:194-207); skipped, printed,
+    for an architecture the exporter does not take (``unsupported``).
+    Any error of the export itself propagates."""
+    if unsupported:
+        print(f"ONNX export skipped (unsupported arch): {unsupported}")
+        return
+    from joshupscale_torch.export.onnx_export import export_onnx
+
+    m = built.obj
+    opts = dict(num_flow_frames=m.num_flow_frames,
+                frame_moving_avg=m.frame_moving_avg,
+                output_flow=m.output_flow, remove_flow=m.remove_flow,
+                flow_pad_factor=m.flow_pad_factor,
+                normalize_brightness=m.normalize_brightness)
+    for name, half in (("model.onnx", False),
+                       ("model_fp16.onnx", True))[:1 + fp16]:
+        path = os.path.join(out_dir, name)
+        export_onnx(path, built.params, m.frame_height, m.frame_width,
+                    fp16=half, **opts)
+        print(f"exported {'fp16 ' if half else ''}ONNX graph to {path}")
 
 
 if __name__ == "__main__":

@@ -745,3 +745,99 @@ def test_play_prediction_on_card_runs_k1_f32(gen, cuda):
         assert float((got[k].cpu() - v).abs().max()) <= 1e-4, k
     strips = build_strips(got, targets)
     assert strips["comparison"].shape == (2, 18, 32, 96, 3)
+
+
+def test_onnx_graph_runner_on_card_matches_cpu(gen, cuda, tmp_path):
+    """``run_graph_torch`` on the card against the CPU on one frame of the
+    exported graph (32 filters, 16x24, BN statistics perturbed), the
+    float32 and the fp16 graph.  Bounds, set from the dtypes: float32
+    (TF32 off) 5e-3 on the [0, 255] output and 2e-5 on the [-0.5, 0.5]
+    states; fp16 storage two f16 ulps (0.25 at 255, 1e-3 at 0.5)."""
+    from joshupscale_torch.export.onnx_export import export_onnx
+    from joshupscale_torch.export.onnx_interp import model_float_dtype
+    from joshupscale_torch.export.onnx_minimal import decode_model
+    from joshupscale_torch.export.onnx_torch import run_graph_torch
+
+    h, w = 16, 24
+    config = {
+        "flow": {"name": "flow-resnet", "num_inputs": 4, "num_filters": 32,
+                 "num_res_blocks": 2},
+        "generator": {"name": "generator-resnet", "num_filters": 32,
+                      "num_res_blocks": 2},
+        "inference": {"name": "inference", "flow": {"model": "flow"},
+                      "generator": {"model": "generator"},
+                      "skip_processing": False, "frame_height": h,
+                      "frame_width": w},
+    }
+    params = create_models(config, seed=2)["inference"].params
+    for net in params.values():
+        for blk in net.values():
+            for bn in (blk.get("bn_1"), blk.get("bn_2")):
+                if bn is not None:
+                    bn["moving_variance"] = torch.from_numpy(
+                        (1 + gen.random(32)).astype(np.float32))
+    for fp16, (tol_out, tol_state) in ((False, (5e-3, 2e-5)),
+                                       (True, (0.25, 1e-3))):
+        path = str(tmp_path / f"m{int(fp16)}.onnx")
+        export_onnx(path, params, h, w, fp16=fp16)
+        model = decode_model(open(path, "rb").read())
+        dt = model_float_dtype(model)
+        feeds = {"cur_frame": gen.integers(0, 256, (1, h, w, 3)).astype(dt),
+                 "pre_gen": gen.uniform(-0.5, 0.5, (1, 3, 4 * h, 4 * w))
+                 .astype(dt),
+                 **{f"last_frame_{i}": gen.uniform(-0.5, 0.5, (1, 3, h, w))
+                    .astype(dt) for i in range(3)}}
+        got = run_graph_torch(model, feeds)
+        ref = run_graph_torch(model, feeds, device="cpu")
+        for k, v in ref.items():
+            assert got[k].dtype == v.dtype == dt, k
+            tol = tol_out if k == "output" else tol_state
+            diff = np.abs(got[k].astype(np.float32) - v.astype(np.float32))
+            assert float(diff.max()) <= tol, (fp16, k, float(diff.max()))
+
+
+def test_two_worker_loader_under_a_cuda_context(cuda, tmp_path):
+    """``create_train_dataset(num_workers=2)`` from a parent that holds a
+    CUDA context (spawned workers, the card hidden from them) over a
+    TFRecord pair chain: the in-process shards' batches, round robin,
+    bit for bit; no ``/dev/shm`` segment left after an early close."""
+    import os
+
+    import cv2
+
+    from joshupscale_torch.data import tfrecord
+    from joshupscale_torch.data.pipeline import (
+        create_dataset,
+        create_train_dataset,
+    )
+
+    torch.zeros(1, device=cuda)
+    assert torch.cuda.is_initialized()
+    rng = np.random.default_rng(4)
+    path = str(tmp_path / "pairs.tfrecords")
+    png = lambda f: cv2.imencode(".png", f)[1].tobytes()  # noqa: E731
+    recs = []
+    for _ in range(4):
+        hr = rng.integers(0, 256, (10, 64, 96, 3), np.uint8)
+        recs.append(tfrecord.encode_example({
+            "input": [png(f[::4, ::4]) for f in hr],
+            "target": [png(f) for f in hr]}))
+    tfrecord.write_records(path, recs)
+    chain = [{"name": "TFRecordDatasetOp", "path": path},
+             {"name": "ParsePairExampleOp"},
+             {"name": "RandomCropOp", "crop_size": 8, "num_img": 2},
+             {"name": "NormalizeOp", "crop_size": 8},
+             {"name": "RandomNoiseOp", "stddev": 0.01},
+             {"name": "RepeatOp"}]
+    shards = [iter(create_dataset(chain + [{"name": "BatchOp",
+                                            "batch_size": 2}],
+                                  seed=5, shard=(2, i))) for i in (0, 1)]
+    before = {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+    it = iter(create_train_dataset(chain, 2, seed=5, num_workers=2))
+    for i in range(6):
+        got, want = next(it), next(shards[i % 2])
+        for k in ("input", "target"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    it.close()
+    after = {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
+    assert not (after - before)

@@ -47,18 +47,11 @@ def _write_sequences(root, groups, lr_hw=(12, 12), seed=0):
             cv2.imwrite(os.path.join(root, "hr", name), hr)
 
 
-def test_training_cli_trains_checkpoints_and_exports(tmp_path):
-    """``training.cli.main`` on a tiny YAML config (2 epochs x 2 steps,
-    validation) on the CPU: finite losses in the history, best and
-    latest checkpoints that load back, and an exported package that the
-    reference's ``load_package`` and the port's ``create_runtime`` both
-    serve; the refused options raise."""
-    import yaml
-
-    from joshupscale_tpu.export.package import load_package as j_load
-    from joshupscale_torch.runtime.engine import create_runtime
-    from joshupscale_torch.training import cli
-
+def _cli_config(tmp_path):
+    """A tiny training config over PNG sequences written under
+    ``tmp_path``: FRVSR at 32 filters, 8x8 crops, 2 epochs x 2 steps,
+    validation, checkpoints, and an export of the inference entry at
+    12x16."""
     _write_sequences(str(tmp_path / "train"), 2)
     _write_sequences(str(tmp_path / "val"), 1, seed=1)
     crop = 8
@@ -85,7 +78,7 @@ def test_training_cli_trains_checkpoints_and_exports(tmp_path):
                            "skip_processing": True, "frame_height": crop,
                            "frame_width": crop}
     models["frvsr"]["inference"] = {"model": "inference"}
-    config = {
+    return {
         "models": models,
         "train_dataset": chain("train", [
             {"name": "RandomHorizontalFlipOp", "threshold": 0.5},
@@ -99,6 +92,23 @@ def test_training_cli_trains_checkpoints_and_exports(tmp_path):
         "export": {"dir": str(tmp_path / "export"), "model": "inference",
                    "overrides": {"frame_height": 12, "frame_width": 16}},
     }
+
+
+def test_training_cli_trains_checkpoints_and_exports(tmp_path):
+    """``training.cli.main`` on a tiny YAML config (2 epochs x 2 steps,
+    validation) on the CPU: finite losses in the history, best and
+    latest checkpoints that load back, and an exported package that the
+    reference's ``load_package`` and the port's ``create_runtime`` both
+    serve; ``--num-devices 2`` raises; with ``data_workers: 2`` and
+    ``export.onnx`` / ``onnx_fp16`` the ONNX files are the reference
+    exporter's."""
+    import yaml
+
+    from joshupscale_tpu.export.package import load_package as j_load
+    from joshupscale_torch.runtime.engine import create_runtime
+    from joshupscale_torch.training import cli
+
+    config = _cli_config(tmp_path)
     path = tmp_path / "config.yaml"
     path.write_text(yaml.safe_dump(config))
     assert cli.main(["-c", str(path), "--cpu"]) == 0
@@ -128,12 +138,67 @@ def test_training_cli_trains_checkpoints_and_exports(tmp_path):
 
     with pytest.raises(NotImplementedError, match="14d"):
         cli.train(config, num_devices=2, device="cpu")
-    onnx = dict(config, export={"dir": str(tmp_path / "e2"), "onnx": True},
-                train=dict(config["train"], epochs=1, steps_per_epoch=1,
-                           checkpoint_dir=str(tmp_path / "c2")))
-    with pytest.raises(NotImplementedError, match="15"):
-        cli.train(onnx, device="cpu")
 
+    # The ONNX door, with the data in two worker processes: model.onnx
+    # and model_fp16.onnx are the JAX exporter's files for the exported
+    # weights.npz, byte for byte.
+    import jax.numpy as jnp
+
+    from joshupscale_tpu.export.onnx_export import export_onnx as j_export
+
+    e2 = tmp_path / "e2"
+    onnx = dict(config, export=dict(config["export"], dir=str(e2),
+                                    onnx=True, onnx_fp16=True),
+                train=dict(config["train"], epochs=1, steps_per_epoch=1,
+                           data_workers=2,
+                           checkpoint_dir=str(tmp_path / "c2")))
+    assert cli.train(onnx, device="cpu") == 0
+    tree = {}
+    with np.load(e2 / "weights.npz") as w:
+        for k in w.files:
+            net, rest = k.split(".", 1)
+            node = tree.setdefault(net, {})
+            *path, leaf = rest.split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = jnp.asarray(w[k])
+    for name, fp16 in (("model.onnx", False), ("model_fp16.onnx", True)):
+        j_export(str(tmp_path / name), tree, 12, 16, fp16=fp16)
+        assert ((e2 / name).read_bytes()
+                == (tmp_path / name).read_bytes()), name
+
+
+@pytest.mark.parametrize("case", ["exporter_error", "unsupported_arch"])
+def test_training_cli_onnx_export_fails_loud_or_skips(tmp_path, monkeypatch,
+                                                      capsys, case):
+    """``export.onnx`` on an architecture the exporter takes lets an
+    error of the exporter (here a ``KeyError``) propagate out of
+    ``train``; an architecture it does not take (a flow type it does
+    not know) is skipped, printed, and ``train`` returns 0 with the
+    package and no ``model.onnx``."""
+    from joshupscale_torch.export import onnx_export
+    from joshupscale_torch.models import registry
+    from joshupscale_torch.training import cli
+
+    config = _cli_config(tmp_path)
+    config["train"].update(epochs=1, steps_per_epoch=1)
+    config["export"]["onnx"] = True
+    if case == "exporter_error":
+        def broken(*args, **kwargs):
+            raise KeyError("generator.conv_1.kernel")
+
+        monkeypatch.setattr(onnx_export, "export_onnx", broken)
+        with pytest.raises(KeyError, match="conv_1"):
+            cli.train(config, device="cpu")
+    else:
+        monkeypatch.setitem(registry.MODELS, "flow-custom",
+                            registry.MODELS["flow-resnet"])
+        config["models"]["flow"]["name"] = "flow-custom"
+        assert cli.train(config, device="cpu") == 0
+        assert ("ONNX export skipped (unsupported arch): flow flow-custom"
+                in capsys.readouterr().out)
+        assert (tmp_path / "export" / "package").is_dir()
+        assert not (tmp_path / "export" / "model.onnx").exists()
 
 
 @pytest.fixture(scope="module")
@@ -220,13 +285,42 @@ def test_val_dataset_and_sources_match_reference(sequences):
     assert create_dataset(files, seed=1) == j_create_dataset(files, seed=1)
 
 
-def test_unported_sources_and_workers_raise(sequences):
-    """The TFRecord ops and the multiprocess loader wait for their
-    ROADMAP item."""
-    for op in ("TFRecordDatasetOp", "ParsePairExampleOp",
-               "ParseSingleExampleOp"):
-        with pytest.raises(NotImplementedError, match="14c"):
-            create_dataset([{"name": op}])
-    with pytest.raises(NotImplementedError, match="14c"):
-        create_train_dataset(_chains(sequences)["u8"], 2, seed=0,
-                             num_workers=2)
+def test_unported_sources_and_workers_raise(sequences, tmp_path):
+    """The TFRecord ops and the multiprocess loader, which raised until
+    ROADMAP 14c, now build: a pair-example file made from the PNG
+    sequences gives the reference's elements; ``num_workers=2`` gives a
+    ``MultiprocessLoader`` (its stream: ``tests/test_torch_mploader.py``).
+    What still raises is what the reference raises: a compressed source
+    without tensorflow, an unseeded shard."""
+    from joshupscale_torch.data import tfrecord
+    from joshupscale_torch.data.mploader import MultiprocessLoader
+
+    def pngs(sub):
+        files = sorted((sequences / sub).glob("*.png"))[:10]
+        return [f.read_bytes() for f in files]
+
+    path = str(tmp_path / "pairs.tfrecords")
+    tfrecord.write_records(path, [
+        tfrecord.encode_example({"input": pngs("lr"), "target": pngs("hr")}),
+        tfrecord.encode_example({"images": pngs("hr")})])
+    for parse in ("ParsePairExampleOp", "ParseSingleExampleOp"):
+        config = [{"name": "TFRecordDatasetOp", "path": path,
+                   "pure_python": True},
+                  {"name": "TakeOp", "size": 1} if parse.startswith(
+                      "ParsePair") else {"name": "SkipOp", "size": 1},
+                  {"name": parse, "pure_python": True},
+                  {"name": "RandomCropOp", "crop_size": CROP, "num_img": 2}]
+        got, want = (list(create_dataset(config, seed=4)),
+                     list(j_create_dataset(config, seed=4)))
+        assert len(got) == len(want) == 2
+        for a, b in zip(got, want):
+            _same(a, b)
+    loader = create_train_dataset(_chains(sequences)["u8"], 2, seed=0,
+                                  num_workers=2)
+    assert isinstance(loader, MultiprocessLoader)
+    assert loader.num_workers == 2
+    with pytest.raises(ValueError, match="compression"):
+        create_dataset([{"name": "TFRecordDatasetOp", "path": path,
+                         "compression_type": "ZLIB"}])
+    with pytest.raises(ValueError, match="requires a seed"):
+        create_dataset(_chains(sequences)["u8"], shard=(2, 1))

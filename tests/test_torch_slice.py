@@ -245,8 +245,9 @@ def test_unported_model_types_raise():
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax nor the JAX package
-    (nor yaml outside the package files and the training CLI)."""
+    """The port and chip_smoke.py import neither jax, tensorflow nor the
+    JAX package; yaml only in the package files and the training CLI;
+    h5py, cv2 and PIL only where a call needs them (none at import)."""
     code = ("import sys, joshupscale_torch, joshupscale_torch.runtime.engine,"
             " joshupscale_torch.export.package, joshupscale_torch.kernels."
             "resblock, joshupscale_torch.kernels.display,"
@@ -259,9 +260,16 @@ def test_port_imports_no_jax():
             " joshupscale_torch.training.gan, joshupscale_torch.training.play,"
             " joshupscale_torch.models.discriminator,"
             " joshupscale_torch.models.vgg, joshupscale_torch.utils.migrate,"
-            " joshupscale_torch.data\n"
+            " joshupscale_torch.data, joshupscale_torch.data.tfrecord,"
+            " joshupscale_torch.data.mploader,"
+            " joshupscale_torch.export.onnx_minimal,"
+            " joshupscale_torch.export.onnx_export,"
+            " joshupscale_torch.export.onnx_interp,"
+            " joshupscale_torch.export.onnx_torch,"
+            " joshupscale_torch.export.importer\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml')]\n"
+            "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml', 'tensorflow',"
+            " 'h5py', 'cv2', 'PIL')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -274,8 +282,8 @@ def test_port_imports_no_jax():
             if words[:1] not in (["import"], ["from"]) or len(words) < 2:
                 continue
             top = words[1].split(".")[0]
-            assert top not in ("jax", "jaxlib", "joshupscale_tpu"), (
-                path, line)
+            assert top not in ("jax", "jaxlib", "joshupscale_tpu",
+                               "tensorflow"), (path, line)
             if top == "yaml":
                 assert (path.name == "package.py" or path.parts[-2:]
                         == ("training", "cli.py")), (path, line)
