@@ -38,8 +38,15 @@ Multi-stream serving: ``ShardedEngine`` on the card with 2 and 4 streams
 (K1 at N = 2 and 4; checked against ``Engine(batch_size=2)`` and each
 stream against the single-stream engine, frames/s beside it), ``PipelinedEngine`` with both stages
 on the card (two frame graphs; checked against ``Engine``, latency and
-``process_async`` throughput beside it), and K1 timed at N = 2.  FRVSR
-training follows (``phase_train``): the models of
+``process_async`` throughput beside it).  ``SpatialEngine`` (one
+stream's frame split by rows, K1 on slab plus halo, K2 per slab;
+``phase_spatial``) on the quality tier with 2 and 4 slabs and on
+``ps2_style`` with 2, every slab on the card: 6 frames and one after
+``reset()`` held against ``Engine.process`` bit for bit (else the first
+layer that differs is printed and the frames must stay within u8 max
+1), K1 and K2 launches a frame checked (136 + 2 on quality with 2
+slabs), ``process`` timed beside ``Engine.process``.  K1 is timed at
+N = 2.  FRVSR training follows (``phase_train``): the models of
 ``configs/frvsr_quality.yaml`` at full width (flow 64x10, generator
 64x24; batch 4, T = 10, LR crop 32) built by the training CLI's
 builder, ``fit`` for 2 epochs x 3 steps with validation and
@@ -70,7 +77,9 @@ K1's two launches.  Last come the phases under ``torch.profiler``
 (a profiler session can leave the host launching more slowly, so every
 host-clock timing comes before them; the quality step is timed once
 more after them, labelled): each path's replays counted by kernel, the
-PS2 steps' device time split by stage and kernel.  K1's and the
+PS2 steps' device time split by stage and kernel, and ``fit``'s profiler
+window (``profile_fit``: 4 full-width bf16 FRVSR steps, steps 1..2
+traced; the trace must hold CUDA kernel events).  K1's and the
 probes' lines and kernel entries carry the
 share of the bf16 peak and the fraction of the bound's rate.  Fails if
 P2 spills registers.
@@ -2323,6 +2332,158 @@ def profile(torch, name, engine, frames, device, out_dir):
     log(f"profile written to {out_dir}")
 
 
+SPATIAL_FRAMES = 6  # each spatial path: frames held against Engine
+SPATIAL_TIMED = 13  # process a frame, spatial and Engine in turns
+SPATIAL_PATHS = (("quality", 2), ("quality", 4), ("ps2_style", 2))
+
+
+def spatial_first_diff(torch, model, params, device, slabs, frames, upto):
+    """The first layer whose output differs between the whole frame (a
+    1-slab ``SpatialEngine``) and ``slabs`` slabs, on frame ``upto``
+    after the frames before it: (name, max abs diff) or None."""
+    from joshupscale_torch.parallel import SpatialEngine
+
+    whole = SpatialEngine(model, params, devices=[device])
+    split = SpatialEngine(model, params, devices=[device] * slabs)
+    for i in range(upto + 1):
+        if i == upto:
+            whole.taps, split.taps = {}, {}
+        whole.process(frames[i])
+        split.process(frames[i])
+    for name, a in whole.taps.items():
+        b = split.taps[name]
+        if not torch.equal(a, b):
+            return name, float((a.float() - b.float()).abs().max())
+    return None
+
+
+def phase_spatial(torch, seed, device):
+    """``SpatialEngine`` (one stream's frame split by LR rows, K1 on
+    slab plus halo) at full width on one card: quality on 2 and 4 slabs
+    and ``ps2_style`` on 2, each slab on ``cuda:0``.  The launch counts
+    set to 0, ``SPATIAL_FRAMES`` frames and a frame after ``reset()``
+    through ``process``, held against ``Engine.process`` (its replayed
+    graph) on the same frames: bit for bit, else the first layer that
+    differs (against the whole frame on the same code) is printed and
+    the frames must stay within u8 max 1.  K1 and K2 launches a frame
+    are checked (K1: the whole frame's count per slab; K2: one per
+    slab).  Then ``process`` is timed beside ``Engine.process`` on the
+    same frames, in turns: one card shows no latency gain."""
+    from joshupscale_torch.models.registry import create_models
+    from joshupscale_torch.parallel import SpatialEngine
+    from joshupscale_torch.runtime.engine import Engine
+
+    t0 = time.perf_counter()
+    kernels = all_kernels()
+    res = {}
+    frames = frames_for(SPATIAL_TIMED, seed)
+    for tier in dict(SPATIAL_PATHS):
+        config = quality_config() if tier == "quality" else ps2_config(tier)
+        built = create_models(config, seed=seed)["inference"]
+        params = seeded_params(torch, built, seed)
+        engine = Engine(built.obj, params, device=device)
+        want = [engine.process(f) for f in frames[:SPATIAL_FRAMES]]
+        k1_whole = 2 * (24 if tier == "quality" else PS2_LADDERS[tier][2])
+        if tier == "quality":
+            k1_whole += 2 * 10
+        for t, slabs in SPATIAL_PATHS:
+            if t != tier:
+                continue
+            name = f"spatial {tier} x{slabs}"
+            spatial = SpatialEngine(built.obj, params,
+                                    devices=[device] * slabs)
+            for k in kernels:
+                k.launches = 0
+            got = [spatial.process(f) for f in frames[:SPATIAL_FRAMES]]
+            spatial.reset()
+            got.append(spatial.process(frames[0]))
+            torch.cuda.synchronize()
+            k1, k2, p1, p2 = (k.launches for k in kernels)
+            n = len(got)
+            log(f"{name}: rows {spatial.split.bounds} (flow net "
+                f"{getattr(spatial, 'flow_split', spatial.split).bounds}); "
+                f"{n} frames through process: K1 launches={k1} "
+                f"({k1 / n:g}/frame), K2 launches={k2} ({k2 / n:g}/frame), "
+                f"P1/P2 launches={p1}/{p2}")
+            if (k1 != k1_whole * slabs * n or k2 != slabs * n or p1 or p2):
+                raise AssertionError(
+                    f"{name}: expected {k1_whole * slabs} K1 and {slabs} K2 "
+                    f"a frame, no P1/P2; got {k1 / n:g}, {k2 / n:g}, {p1}, "
+                    f"{p2}")
+            diffs = [int(np.abs(g.astype(np.int32)
+                                - w.astype(np.int32)).max())
+                     for g, w in zip(got, want + want[:1])]
+            exact = not any(diffs)
+            first = None
+            if not exact:
+                upto = next(i for i, d in enumerate(diffs) if d)
+                first = spatial_first_diff(
+                    torch, built.obj, params, device, slabs, frames,
+                    min(upto, SPATIAL_FRAMES - 1))
+            log(f"{name} vs Engine.process (its replayed graph), "
+                f"{SPATIAL_FRAMES} frames and 1 after reset(): bit for bit "
+                f"{exact}; u8 max diff per frame {diffs}"
+                + ("" if exact else f"; first layer that differs from the "
+                   f"whole frame: {first}"))
+            if max(diffs) > 1:
+                raise AssertionError(f"{name}: frames differ from Engine "
+                                     f"by more than 1")
+            sp_ms, en_ms = [], []
+            for f in frames:
+                t1 = time.perf_counter()
+                spatial.process(f)
+                t2 = time.perf_counter()
+                engine.process(f)
+                sp_ms.append((t2 - t1) * 1e3)
+                en_ms.append((time.perf_counter() - t2) * 1e3)
+            sp, en = float(np.median(sp_ms[3:])), float(np.median(en_ms[3:]))
+            log(f"{name}: process median {sp:.3f} ms/frame (eager, "
+                f"{slabs} slabs on one card) beside Engine.process "
+                f"{en:.3f} ms (replayed graph), same frames in turns; one "
+                f"card cannot show a latency gain")
+            res[name] = {"k1": k1 // n, "k2": k2 // n, "exact": exact,
+                         "max_diff": max(diffs), "first_diff": first,
+                         "ms": sp, "engine_ms": en,
+                         "rows": list(spatial.split.bounds)}
+            del spatial
+        del engine
+    log(f"spatial: phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def profile_fit(torch, seed, device, out_dir):
+    """``fit``'s profiler window on the card: the full-width FRVSR
+    config (``train_config``) for 4 steps with ``profile_dir`` and a
+    window of global steps 1..2; the trace it writes must hold CUDA
+    kernel events.  Returns (kernel events, trace files)."""
+    import glob
+    import itertools
+
+    from joshupscale_torch.training.cli import build_training
+    from joshupscale_torch.training.trainer import fit
+
+    config = train_config(out_dir, "bfloat16")
+    setup = build_training(config, seed, device)
+    prof_dir = os.path.join(out_dir, "profile")
+    fit(setup.step, setup.state, itertools.cycle(train_batches(2, seed)),
+        epochs=1, steps_per_epoch=4,
+        rng=torch.Generator(device).manual_seed(seed), log_fn=lambda s: None,
+        profile_dir=prof_dir, profile_batch=(1, 2))
+    torch.cuda.synchronize()
+    files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    kernels = 0
+    for path in files:
+        with open(path) as f:
+            kernels += sum(1 for e in json.load(f)["traceEvents"]
+                           if e.get("ph") == "X" and e.get("cat") == "kernel")
+    log(f"fit profiler window (global steps 1..2 of 4, flow 64x10, "
+        f"generator 64x24, bf16): {len(files)} trace file(s) in "
+        f"profile_dir, {kernels} CUDA kernel events")
+    if len(files) != 1 or not kernels:
+        raise AssertionError("fit's profiler window traced no CUDA kernel")
+    return kernels, len(files)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2379,6 +2540,7 @@ def main() -> int:
     int8 = phase_int8(torch, args.seed, device, paths)
     batched = {}
     par = phase_parallel(torch, args.seed, device, batched)
+    spatial = phase_spatial(torch, args.seed, device)
     k1_n2, lib_n2 = time_k1(torch, device, 64, n=2)
     with tempfile.TemporaryDirectory() as train_dir:
         train = phase_train(torch, args.seed, device, train_dir)
@@ -2399,6 +2561,8 @@ def main() -> int:
         {d: gan[d]["step_ms"] for d in ("float32", "bfloat16")}, "gan",
         lambda dtype: build_gan(torch, gan_config("unused", dtype),
                                 args.seed, device))
+    with tempfile.TemporaryDirectory() as fit_dir:
+        fit_kernels, _ = profile_fit(torch, args.seed, device, fit_dir)
     paths.clear()
     batched.clear()
 
@@ -2422,7 +2586,9 @@ def main() -> int:
                "gan export": gan["export_launches"],
                "doors export": doors["export_launches"],
                "doors load_trained_params": doors["loaded_launches"],
-               "gan play (one prediction, f32)": (gan["play_k1"], 0)}
+               "gan play (one prediction, f32)": (gan["play_k1"], 0),
+               **{name: (spatial[name]["k1"], spatial[name]["k2"])
+                  for name in spatial}}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
                                                k1_n2["conv_2"])
     kernels = [
@@ -2498,6 +2664,13 @@ def main() -> int:
         f"{par['pipelined']['engine_ms'][1]:.3f}), async "
         f"{par['pipelined']['async_fps']:.1f} (Engine "
         f"{par['pipelined']['engine_async_fps']:.1f}) frames/s on {card}")
+    for name, t in spatial.items():
+        log(f"{name}: frames bit for bit with Engine {t['exact']} (u8 max "
+            f"{t['max_diff']}), {t['k1']} K1 + {t['k2']} K2 a frame, process "
+            f"{t['ms']:.3f} ms beside Engine.process {t['engine_ms']:.3f} ms "
+            f"(one card: no latency gain can show) on {card}")
+    log(f"fit profiler window: {fit_kernels} CUDA kernel events traced "
+        f"over 2 full-width bf16 FRVSR steps on {card}")
     log(f"quality after the profiler sessions: step + display eager "
         f"{after['eager_ms'][0]:.3f} / {after['eager_ms'][1]:.3f} ms, "
         f"replayed {after['replayed_ms'][0]:.3f} / "

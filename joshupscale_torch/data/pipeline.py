@@ -100,22 +100,25 @@ class TFRecordDatasetOp(DatasetOp):
     """TFRecord source (reference dataset.py:50-68), read through the
     port's codec (:mod:`joshupscale_torch.data.tfrecord`).
 
-    ``path`` is one file or a list of files.  ``pure_python`` is the
-    reference's switch away from its tensorflow reader; the port has
-    only this reader and accepts the key.  Compressed files
-    (``compression_type``) need tensorflow and raise ``ValueError``;
+    ``path`` is one file or a list of files.  ``compression_type``
+    None or "" reads plain files, "GZIP" and "ZLIB" compressed ones
+    (decompressed with the stdlib, with or without ``pure_python``:
+    the reference's pure-Python reader refuses them, its tensorflow
+    reader does not).  Any other type raises ``ValueError`` here,
+    where tensorflow logs it and reads the file uncompressed.
+    ``pure_python`` is the reference's switch away from its tensorflow
+    reader; the port has only this reader and accepts the key.
     tf.data's other reader keys are ignored.
     """
 
     def __init__(self, name: str, path=None, pure_python: bool = False,
                  compression_type: Optional[str] = None, **kw):
         super().__init__(name)
-        if compression_type:
-            raise ValueError(
-                f"compressed TFRecords (compression_type="
-                f"{compression_type!r}) need tensorflow, which the port "
-                f"does not use")
+        from joshupscale_torch.data.tfrecord import check_compression_type
+
+        check_compression_type(compression_type)
         self.path = path
+        self.compression_type = compression_type
 
     def __call__(self, data):
         path = self.path if self.path is not None else data
@@ -127,7 +130,8 @@ class TFRecordDatasetOp(DatasetOp):
 
         def gen():
             for p in paths:
-                yield from read_records(p)
+                yield from read_records(
+                    p, compression_type=self.compression_type)
 
         return _Restartable(gen)
 

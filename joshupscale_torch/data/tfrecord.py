@@ -8,7 +8,10 @@ The port reads and writes them without tensorflow:
 
 - record framing: the public TFRecord format -- ``uint64le length,
   uint32le masked-crc32c(length), payload, uint32le
-  masked-crc32c(payload)``;
+  masked-crc32c(payload)``; a GZIP or ZLIB file (tensorflow's
+  ``compression_type``) is this framing compressed as a whole, and
+  ``read_records`` decompresses it as it reads with the stdlib's
+  ``gzip`` / ``zlib``;
 - ``tf.train.Example``: hand-encoded/decoded with the protobuf wire
   format (schema: Example{features=1}, Features{map<string,Feature>
   feature=1}, Feature{bytes_list=1|float_list=2|int64_list=3}, each
@@ -26,7 +29,9 @@ Files and Examples written here are byte for byte the JAX package's
 
 from __future__ import annotations
 
+import gzip
 import struct
+import zlib
 from typing import (
     Any, Dict, Iterable, Iterator, List, Optional, Sequence, Union,
 )
@@ -139,9 +144,58 @@ def write_records(path: str, records: Iterable[bytes]) -> int:
     return n
 
 
-def read_records(path: str, verify: bool = False) -> Iterator[bytes]:
-    """Yield serialized records; length CRCs always checked."""
-    with open(path, "rb") as f:
+COMPRESSION_TYPES = (None, "", "GZIP", "ZLIB")
+
+
+def check_compression_type(compression_type: Optional[str]) -> None:
+    """Raise ``ValueError`` unless ``compression_type`` is one that
+    ``read_records`` reads: None or "" (no compression), "GZIP" or
+    "ZLIB", as tensorflow spells them."""
+    if compression_type not in COMPRESSION_TYPES:
+        raise ValueError(
+            f"unsupported compression_type {compression_type!r}; expected "
+            f"one of {COMPRESSION_TYPES}")
+
+
+class _ZlibReader:
+    """``read(n)`` over a zlib stream (tensorflow's ZLIB TFRecords: one
+    zlib-wrapped deflate stream), decompressed in bounded chunks."""
+
+    def __init__(self, f):
+        self._f = f
+        self._d = zlib.decompressobj()
+        self._buf = bytearray()
+
+    def read(self, n: int) -> bytes:
+        while len(self._buf) < n and not self._d.eof:
+            chunk = self._d.unconsumed_tail or self._f.read(1 << 16)
+            if not chunk:
+                break
+            self._buf += self._d.decompress(chunk, 1 << 20)
+        out = bytes(self._buf[:n])
+        del self._buf[:n]
+        return out
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def _open(path: str, compression_type: Optional[str]):
+    check_compression_type(compression_type)
+    if compression_type == "GZIP":
+        return gzip.open(path, "rb")
+    if compression_type == "ZLIB":
+        return _ZlibReader(open(path, "rb"))
+    return open(path, "rb")
+
+
+def read_records(path: str, verify: bool = False,
+                 compression_type: Optional[str] = None) -> Iterator[bytes]:
+    """Yield serialized records; length CRCs always checked.
+    ``compression_type``: None or "" for a plain file, "GZIP" or
+    "ZLIB" for a compressed one (``check_compression_type``)."""
+    f = _open(path, compression_type)
+    try:
         while True:
             header = f.read(8)
             if not header:
@@ -159,6 +213,8 @@ def read_records(path: str, verify: bool = False) -> Iterator[bytes]:
             if verify and pcrc != masked_crc32c(payload):
                 raise ValueError(f"{path}: corrupt record payload")
             yield payload
+    finally:
+        f.close()
 
 
 # ---------------------------------------------------------------------

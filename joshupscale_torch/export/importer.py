@@ -6,8 +6,12 @@ and layouts (``export/weights.py`` converts both ways), so a file either
 package writes loads in the other.
 
 - npz: ``save_params_npz`` / ``load_params_npz`` (a dotted ``prefix``
-  selects a subtree), and ``load_trained_params``, which finds the
-  prefix of any checkpoint layout itself (``detect_checkpoint_prefix``).
+  selects a subtree; given a ``template``, the file is read into it as
+  the reference's ``unflatten_into`` reads), and ``load_trained_params``,
+  which finds the prefix of any checkpoint layout itself
+  (``detect_checkpoint_prefix``).  ``flatten_params`` /
+  ``unflatten_into`` are the reference's tree <-> dotted-path pair on the
+  port's trees (dicts, lists, tuples), in the reference's layouts.
 - Keras h5 weight files: the reference trains Keras models and saves
   ``.h5`` weights (reference ``scripts/training/train_local.py:184-209``).
   ``load_keras_h5`` reads Keras 3 and legacy Keras 2 files,
@@ -24,9 +28,11 @@ from typing import Dict
 
 import numpy as np
 
+import torch
+
+from joshupscale_torch.export import weights
 from joshupscale_torch.export.weights import (
     from_flat_numpy,
-    load_params_npz,
     nest_flat,
     to_flat_numpy,
 )
@@ -34,37 +40,89 @@ from joshupscale_torch.models.registry import load_into
 
 __all__ = [
     "detect_checkpoint_prefix",
+    "flatten_params",
     "load_keras_h5",
     "load_onnx",
     "load_params_npz",
     "load_trained_params",
     "save_keras_h5",
     "save_params_npz",
+    "unflatten_into",
 ]
+
+
+def flatten_params(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A param tree (dicts, lists and tuples; ``_meta`` entries and
+    None skipped) -> dotted paths to numpy arrays in the reference's
+    layouts (``export/weights.py``): the reference's ``flatten_params``
+    on the port's trees."""
+    out = {}
+    if isinstance(tree, dict):
+        items = ((k, v) for k, v in tree.items() if k != "_meta")
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    elif tree is None:
+        return out
+    elif torch.is_tensor(tree):
+        return {prefix: weights._export(prefix, tree)}
+    else:
+        return {prefix: np.asarray(tree)}
+    for k, v in items:
+        out.update(flatten_params(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def unflatten_into(template, flat: Dict[str, np.ndarray], prefix: str = ""):
+    """A tree shaped like ``template`` (the port's layouts, dtypes and
+    devices) from dotted paths in the reference's layouts: the
+    reference's ``unflatten_into``.  Keys the template lacks are
+    ignored; a missing one raises ``KeyError``, a wrong shape
+    ``ValueError``."""
+    def sub(k):
+        return f"{prefix}.{k}" if prefix else str(k)
+
+    if isinstance(template, dict):
+        return {k: v if k == "_meta" else unflatten_into(v, flat, sub(k))
+                for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        items = [unflatten_into(v, flat, sub(i))
+                 for i, v in enumerate(template)]
+        if hasattr(template, "_fields"):
+            return type(template)(*items)
+        return type(template)(items)
+    if template is None:
+        return None
+    if prefix not in flat:
+        raise KeyError(f"Missing parameter in checkpoint: {prefix}")
+    value = weights._convert(prefix, flat[prefix])
+    if tuple(value.shape) != tuple(template.shape):
+        raise ValueError(
+            f"Shape mismatch for {prefix}: checkpoint "
+            f"{np.shape(flat[prefix])} vs model {tuple(template.shape)}")
+    return value.to(template.device, template.dtype)
+
+
+def load_params_npz(path: str, template=None, prefix: str = ""):
+    """A flat ``.npz`` (its dotted ``prefix`` subtree, if given) as the
+    port's nested params; with ``template``, read into it
+    (``unflatten_into``), as the reference's ``load_params_npz(path,
+    template, prefix)`` does."""
+    if template is None:
+        return weights.load_params_npz(path, prefix)
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    if prefix:
+        dot = prefix + "."
+        flat = {k[len(dot):]: v for k, v in flat.items()
+                if k.startswith(dot)}
+        if not flat:
+            raise KeyError(f"no keys under prefix {prefix!r} in {path}")
+    return unflatten_into(template, flat)
 
 
 def save_params_npz(path: str, params) -> None:
     """The port's params as the reference's flat ``.npz``."""
     np.savez(path, **to_flat_numpy(params))
-
-
-def _into_template(template, flat: Dict[str, np.ndarray]):
-    """The leaves of ``template`` read from the reference-layout
-    ``flat`` dict (keys the template does not have are ignored, as the
-    reference's ``unflatten_into`` ignores them), cast to the
-    template's dtypes."""
-    wanted = to_flat_numpy(template)
-    missing = sorted(set(wanted) - set(flat))
-    if missing:
-        raise KeyError(f"Missing parameter in checkpoint: {missing[0]} "
-                       f"({len(missing)} missing)")
-    for path, want in wanted.items():
-        if tuple(np.shape(flat[path])) != want.shape:
-            raise ValueError(
-                f"Shape mismatch for {path}: checkpoint "
-                f"{np.shape(flat[path])} vs model {want.shape}")
-    return load_into(template,
-                     from_flat_numpy({p: flat[p] for p in wanted}))
 
 
 def detect_checkpoint_prefix(path: str) -> str:
@@ -96,7 +154,7 @@ def load_trained_params(path: str, template):
         dot = prefix + "."
         flat = {k[len(dot):]: v for k, v in flat.items()
                 if k.startswith(dot)}
-    return _into_template(template, flat)
+    return unflatten_into(template, flat)
 
 
 # ---------------------------------------------------------------------------

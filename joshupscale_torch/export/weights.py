@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from joshupscale_torch.models.generator import deconv_matrix
+from joshupscale_torch.nn.layers import deconv_matrix
 
 
 def _convert(path: str, arr: np.ndarray) -> torch.Tensor:

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from joshupscale_torch.kernels.resblock import resblock_conv3x3
 from joshupscale_torch.nn.layers import (
@@ -176,7 +177,7 @@ def prepare_conv_bn(conv_params, bn_params, dtype: torch.dtype,
                     path=None):
     """A conv and its batch norm: folded into one conv (a float conv
     outside calibration), else ``{"conv", "bn"}`` for
-    ``conv_bn_apply``'s unfolded route (``path``: the conv's dotted
+    ``WholeFrame.conv_bn``'s unfolded route (``path``: the conv's dotted
     path, given for calibration)."""
     if path is None and _float(conv_params):
         return fold_conv_bn(conv_params, bn_params, dtype)
@@ -187,14 +188,6 @@ def prepare_conv_bn(conv_params, bn_params, dtype: torch.dtype,
 def batch_norm_apply(bn, x: torch.Tensor) -> torch.Tensor:
     """``x * scale + offset`` on a ``prepare_bn`` pair, in one op."""
     return torch.addcmul(bn["offset"], x, bn["scale"])
-
-
-def conv_bn_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """A ``prepare_conv_bn`` result on ``x``: the folded conv, or the
-    conv then batch norm in ``x.dtype``."""
-    if "bn" in params:
-        return batch_norm_apply(params["bn"], conv2d(params["conv"], x))
-    return conv2d(params, x)
 
 
 def _fold_conv(conv_params, bn_params, dtype, fade=None):
@@ -280,6 +273,84 @@ def res_blocks_apply(params, names, x: torch.Tensor,
     return out
 
 
+def concat(*xs: torch.Tensor) -> torch.Tensor:
+    return torch.cat(xs, dim=-1)
+
+
+class WholeFrame:
+    """How a serving step runs each kind of layer: here, on the whole
+    frame, each as it is.
+
+    The nets (``models/fnet.py``, ``models/generator.py``) and
+    ``InferenceModel.apply`` take these rules as ``ops`` and run every
+    layer through them, so ``parallel.rows.Rows``, the same rules on
+    row slabs over devices, runs the same definitions.  A net passes its
+    params to the rules as arguments, never inside a closure (the slab
+    rules hand each slab its own device's copy).  ``scaled`` and
+    ``padded`` give the rules of another grid (after a pool or an
+    upscale, or the flow net's padded frame); on the whole frame they
+    are the same rules."""
+
+    def scaled(self, num: int, den: int = 1) -> "WholeFrame":
+        return self
+
+    def padded(self, top: int, bottom: int) -> "WholeFrame":
+        return self
+
+    def map(self, fn, *args):
+        """A row-local layer: elementwise ops, 1x1 products, concats,
+        depth/space reshapes, 2x2 pools."""
+        return fn(*args)
+
+    def conv(self, params, x):
+        """``nn.layers.conv2d``."""
+        return conv2d(params, x)
+
+    def conv_bn(self, params, x):
+        """A ``prepare_conv_bn`` result: the folded conv, or the conv
+        then batch norm in ``x.dtype``."""
+        if "bn" in params:
+            return self.map(batch_norm_apply, params["bn"],
+                            self.conv(params["conv"], x))
+        return self.conv(params, x)
+
+    def res_blocks(self, params, names, x, activation, path: str):
+        """``res_blocks_apply`` (``path``: the net's name)."""
+        return res_blocks_apply(params, names, x, activation)
+
+    def upscale(self, scale: int, fn, *args):
+        """``fn(*args)``, a TF1-bilinear upscale: its output row
+        ``scale * r + k`` reads input rows ``r`` and ``r + 1``."""
+        return fn(*args)
+
+    def whole(self, fn, *args):
+        """A layer with no row-local form (the moving average)."""
+        return fn(*args)
+
+    def reduce(self, fn, *args):
+        """A value of the whole tensors (the brightness mean)."""
+        return fn(*args)
+
+    def warp(self, fn, table, flow):
+        """``fn(table, flow)``, a warp that reads all of ``table``."""
+        return fn(table, flow)
+
+    def pad(self, x, top: int, bottom: int, left: int, right: int):
+        """Zero rows and columns around ``x`` (onto the padded grid)."""
+        return F.pad(x, (0, 0, left, right, top, bottom))
+
+    def crop(self, x, top: int, bottom: int, left: int, right: int):
+        """``pad``'s inverse, back from the padded grid."""
+        return x[:, top:x.shape[1] - bottom, left:x.shape[2] - right]
+
+    def record(self, name: str, x):
+        """``x``, the output of the layer ``name``."""
+        return x
+
+
+WHOLE_FRAME = WholeFrame()
+
+
 # ---------------------------------------------------------------------------
 # Training form (raw params)
 
@@ -292,6 +363,26 @@ def conv_bn_train(conv_params, bn_params, x: torch.Tensor, mut: Mutables,
     if mut.training:
         return mut.bn(bn_params, path, conv2d(conv_params, x))
     return conv2d(fold_conv_bn(conv_params, bn_params, x.dtype), x)
+
+
+# Inference batch-norm folding switch of ``conv_bn`` (the reference's;
+# its calibration sweep turns it off).  The serving route folds in
+# ``prepare_params`` instead and does not read it.
+FOLD_BN = True
+
+
+def conv_bn(conv_params, bn_params, x: torch.Tensor, mut: Mutables,
+            path: str) -> torch.Tensor:
+    """The reference's ``conv_bn`` on raw params: conv then batch norm,
+    folded into the conv at inference (``conv_bn_train``) unless
+    ``FOLD_BN`` is off or the conv is int8 (``kernel_q``: run through
+    ``prepare_conv_int8``), which keep the explicit batch norm."""
+    if "kernel_q" in conv_params:
+        return mut.bn(bn_params, path,
+                      conv2d(prepare_conv_int8(conv_params), x))
+    if not (FOLD_BN or mut.training):
+        return mut.bn(bn_params, path, conv2d(conv_params, x))
+    return conv_bn_train(conv_params, bn_params, x, mut, path)
 
 
 def res_block_train(params, x: torch.Tensor, activation, mut: Mutables,

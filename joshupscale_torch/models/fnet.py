@@ -6,7 +6,9 @@ frames (current first, then the previous ones, newest to oldest); the
 output is the 32-channel head, depth_to_space(4)'d unless
 ``s2d_output``.  Each ``*_apply`` takes the serving params that its
 ``prepare_*`` makes once from the raw ones (float or int8, see
-``models/common.py``; ``path=...`` is the calibration route).
+``models/common.py``; ``path=...`` is the calibration route) and runs
+its layers through ``ops`` (``models.common.WholeFrame``; row slabs
+over devices with ``parallel.rows.Rows``).
 ``*_train`` run the raw params in training form (``Mutables``).
 """
 
@@ -19,16 +21,17 @@ import torch
 import torch.nn.functional as F
 
 from joshupscale_torch.models.common import (
+    WHOLE_FRAME,
     Mutables,
+    WholeFrame,
     batch_norm_apply,
+    concat,
     conv_bn_train,
-    conv_bn_apply,
     prepare_bn,
     prepare_conv,
     prepare_conv_bn,
     prepare_res_blocks,
     res_block_init,
-    res_blocks_apply,
     res_blocks_train,
 )
 from joshupscale_torch.nn.layers import (
@@ -72,22 +75,25 @@ def prepare_flow_resnet(params, dtype: torch.dtype, path=None):
 
 def flow_resnet_apply(params, frames: List[torch.Tensor], activation="relu",
                       num_res_blocks: Optional[int] = None,
-                      s2d_output: bool = False) -> torch.Tensor:
+                      s2d_output: bool = False,
+                      ops: WholeFrame = WHOLE_FRAME) -> torch.Tensor:
     """Frames -> (N, 4H, 4W, 2) flow, or the raw (N, H, W, 32) head
     (channel ``(ry*4+rx)*2 + {y,x}``) with ``s2d_output``.  ``params``
-    as ``prepare_flow_resnet`` gives them."""
+    as ``prepare_flow_resnet`` gives them; ``ops``: how each layer runs
+    (``models.common.WholeFrame``)."""
     act = get_activation(activation)
     if num_res_blocks is None:
         num_res_blocks = sum(1 for k in params if k.startswith("block_"))
-    out = torch.cat(frames, dim=-1)
-    out = act(conv_bn_apply(params["conv_1"], out))
-    out = res_blocks_apply(
+    out = ops.map(concat, *frames)
+    out = ops.record("flow.conv_1", ops.map(
+        act, ops.conv_bn(params["conv_1"], out)))
+    out = ops.res_blocks(
         params, [f"block_{i + 1}" for i in range(num_res_blocks)], out,
-        activation)
-    out = conv2d(params["conv_2"], out)
+        activation, "flow")
+    out = ops.record("flow.conv_2", ops.conv(params["conv_2"], out))
     if s2d_output:
         return out
-    return depth_to_space(out, 4)
+    return ops.map(depth_to_space, out, 4)
 
 
 def flow_resnet_train(params, frames: List[torch.Tensor], mut: Mutables,
@@ -166,9 +172,9 @@ def prepare_flow_autoencoder(params, dtype: torch.dtype, path=None):
     return out
 
 
-def _conv_bn_act(conv_params, bn, x: torch.Tensor, act) -> torch.Tensor:
-    """conv, then ``offset + y * scale`` in one op, then act."""
-    return act(batch_norm_apply(bn, conv2d(conv_params, x)))
+def _bn_act(bn, x: torch.Tensor, act) -> torch.Tensor:
+    """``offset + x * scale`` in one op, then act."""
+    return act(batch_norm_apply(bn, x))
 
 
 def _max_pool_2x(x: torch.Tensor) -> torch.Tensor:
@@ -177,31 +183,48 @@ def _max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def _upscale_2x_f32(x: torch.Tensor) -> torch.Tensor:
+    return upscale_bilinear(x.float(), 2).to(x.dtype)
+
+
+def flow_autoencoder_levels(params) -> int:
+    """The autoencoder's pooling stages (half its ``block_i``)."""
+    return sum(1 for k in params if k.startswith("block_")) // 2
+
+
 def flow_autoencoder_apply(params, frames: List[torch.Tensor],
-                           activation="relu",
-                           s2d_output: bool = False) -> torch.Tensor:
+                           activation="relu", s2d_output: bool = False,
+                           ops: WholeFrame = WHOLE_FRAME) -> torch.Tensor:
     """Autoencoder FNet: down (conv-bn-act x2, 2x2 max pool) x K, up
     (conv-bn-act x2, x2 bilinear in float32) x K, the optional mid conv,
     the 3x3 head, d2s(4) unless ``s2d_output``.  The ladder follows the
-    param tree (half the ``block_i`` are down blocks); ``params`` as
-    ``prepare_flow_autoencoder`` gives them."""
+    param tree (``flow_autoencoder_levels``); ``params`` as
+    ``prepare_flow_autoencoder`` gives them; ``ops``: how each layer
+    runs (``models.common.WholeFrame``), on a grid that halves at each
+    pool and doubles at each upscale."""
     act = get_activation(activation)
-    block_count = sum(1 for k in params if k.startswith("block_")) // 2
-    out = torch.cat(frames, dim=-1)
-    for i in range(2 * block_count):
-        p = params[f"block_{i + 1}"]
-        out = _conv_bn_act(p["conv_1"], p["bn_1"], out, act)
-        out = _conv_bn_act(p["conv_2"], p["bn_2"], out, act)
-        if i < block_count:
-            out = _max_pool_2x(out)
+    levels = flow_autoencoder_levels(params)
+    out = ops.map(concat, *frames)
+    for i in range(2 * levels):
+        name = f"block_{i + 1}"
+        p = params[name]
+        for j in ("1", "2"):
+            out = ops.map(_bn_act, p["bn_" + j],
+                          ops.conv(p["conv_" + j], out), act)
+        if i < levels:
+            out = ops.map(_max_pool_2x, out)
+            ops = ops.scaled(1, 2)
         else:
-            out = upscale_bilinear(out.float(), 2).to(out.dtype)
+            out = ops.upscale(2, _upscale_2x_f32, out)
+            ops = ops.scaled(2)
+        out = ops.record(f"flow.{name}", out)
     if "conv_1" in params:  # odd filter list: mid conv after the ladder
-        out = _conv_bn_act(params["conv_1"], params["bn_1"], out, act)
-    out = conv2d(params["conv_2"], out)
+        out = ops.record("flow.conv_1", ops.map(
+            _bn_act, params["bn_1"], ops.conv(params["conv_1"], out), act))
+    out = ops.record("flow.conv_2", ops.conv(params["conv_2"], out))
     if s2d_output:
         return out
-    return depth_to_space(out, 4)
+    return ops.map(depth_to_space, out, 4)
 
 
 def flow_autoencoder_train(params, frames: List[torch.Tensor],
@@ -209,18 +232,18 @@ def flow_autoencoder_train(params, frames: List[torch.Tensor],
                            activation="relu") -> torch.Tensor:
     """``flow_autoencoder_apply`` on raw params in training form."""
     act = get_train_activation(activation)
-    block_count = sum(1 for k in params if k.startswith("block_")) // 2
+    levels = flow_autoencoder_levels(params)
     out = torch.cat(frames, dim=-1)
-    for i in range(2 * block_count):
+    for i in range(2 * levels):
         name = f"block_{i + 1}"
         p = params[name]
         for j in ("1", "2"):
             out = act(mut.bn(p["bn_" + j], f"{name}.bn_{j}",
                              conv2d(p["conv_" + j], out)))
-        if i < block_count:
+        if i < levels:
             out = _max_pool_2x(out)
         else:
-            out = upscale_bilinear(out.float(), 2).to(out.dtype)
+            out = _upscale_2x_f32(out)
     if "conv_1" in params:
         out = act(mut.bn(params["bn_1"], "bn_1",
                          conv2d(params["conv_1"], out)))

@@ -12,6 +12,7 @@ first conv sees the frame alone.  ``generator_resnet_apply`` takes the
 serving params that ``prepare_generator_resnet`` makes once from the raw
 ones: folds, the tiled bn_2, the block-diagonal deconv2 product and the
 bilinear phase kernel are constants of the step, built ahead of it.
+It runs its layers through ``ops``, as the flow nets do.
 ``generator_resnet_train`` runs the raw params in training form (the
 pixel tail, as the reference trains).
 """
@@ -24,24 +25,25 @@ import numpy as np
 import torch
 
 from joshupscale_torch.models.common import (
+    WHOLE_FRAME,
     Mutables,
-    conv_bn_apply,
+    WholeFrame,
     conv_bn_train,
     prepare_conv_bn,
     prepare_res_blocks,
     res_block_init,
-    res_blocks_apply,
     res_blocks_train,
 )
 from joshupscale_torch.nn.layers import (
     batch_norm_init,
     conv2d_init,
     conv2d_transpose_2x,
+    conv2d_transpose_2x_init,
     deconv_kernel,
+    deconv_matrix,  # noqa: F401  (re-exported: the deconv layout helper)
     fold_bn,
     get_activation,
     get_train_activation,
-    glorot_uniform,
 )
 from joshupscale_torch.ops.image import clip
 from joshupscale_torch.ops.resize import (
@@ -52,24 +54,6 @@ from joshupscale_torch.ops.resize import (
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 
 
-def deconv_matrix(kernel: np.ndarray) -> np.ndarray:
-    """Deconv kernel (2, 2, O, I) -> the equivalent 1x1 product
-    (I, 4*O) with output channel ``(dy*2 + dx)*O + o``."""
-    _, _, out_ch, in_ch = kernel.shape
-    return np.ascontiguousarray(
-        kernel.transpose(3, 0, 1, 2).reshape(in_ch, 4 * out_ch))
-
-
-def _deconv_init(rng: np.random.Generator, in_ch: int, out_ch: int,
-                 use_bias: bool):
-    kernel = glorot_uniform(rng, (2, 2, out_ch, in_ch), 4 * in_ch,
-                            4 * out_ch)
-    params = {"kernel": torch.from_numpy(deconv_matrix(kernel))}
-    if use_bias:
-        params["bias"] = torch.zeros(out_ch)
-    return params
-
-
 def generator_resnet_init(rng: np.random.Generator, num_filters: int = 64,
                           num_res_blocks: int = 24,
                           num_fade_in_res_blocks: int = 0,
@@ -78,9 +62,10 @@ def generator_resnet_init(rng: np.random.Generator, num_filters: int = 64,
     params = {
         "conv_1": conv2d_init(rng, 3, 51, num_filters, use_bias=False),
         "bn_1": batch_norm_init(num_filters),
-        "conv_trans_1": _deconv_init(rng, num_filters, 32, use_bias=False),
+        "conv_trans_1": conv2d_transpose_2x_init(rng, num_filters, 32,
+                                               use_bias=False),
         "bn_2": batch_norm_init(32),
-        "conv_trans_2": _deconv_init(rng, 32, 3, use_bias=True),
+        "conv_trans_2": conv2d_transpose_2x_init(rng, 32, 3, use_bias=True),
     }
     total = num_res_blocks + num_fade_in_res_blocks
     for i in range(total):
@@ -95,8 +80,8 @@ def generator_resnet_init(rng: np.random.Generator, num_filters: int = 64,
 
 def generator_resnet_apply(params, frame: torch.Tensor,
                            pre_warp: Optional[torch.Tensor],
-                           activation="relu",
-                           s2d_output: bool = True) -> torch.Tensor:
+                           activation="relu", s2d_output: bool = True,
+                           ops: WholeFrame = WHOLE_FRAME) -> torch.Tensor:
     """(frame, warped previous output) -> refined output.
 
     With ``s2d_output`` (the serving form) ``pre_warp`` is taken in s2d
@@ -105,13 +90,33 @@ def generator_resnet_apply(params, frame: torch.Tensor,
     ``pre_warp=None`` is the non-temporal variant (``remove_flow``): the
     generator sees the frame alone.  ``params`` as
     ``prepare_generator_resnet`` gives them for the same ``s2d_output``
-    and ``frame_only = pre_warp is None``.
+    and ``frame_only = pre_warp is None``; ``ops``: how each layer runs
+    (``models.common.WholeFrame``).
     """
     act = get_activation(activation)
     num_blocks = sum(1 for k in params if k.startswith("block_"))
     conv_1 = params["conv_1"].get("conv", params["conv_1"])
     in_ch = (conv_1["kernel"].shape[-1] if "kernel" in conv_1
              else conv_1["in_channels"])
+    inp = ops.map(_input, frame, pre_warp, s2d_output, in_ch)
+    out = ops.record("generator.conv_1", ops.map(
+        act, ops.conv_bn(params["conv_1"], inp)))
+    out = ops.res_blocks(
+        params, [f"block_{i + 1}" for i in range(num_blocks)], out,
+        activation, "generator")
+    if s2d_output:
+        tail, detail, scale = params, _tail_s2d_detail, 1
+    else:
+        tail, detail, scale = params["pixel_tail"], _tail_pixel_detail, 4
+    detail = ops.record("generator.tail_detail",
+                        ops.map(detail, tail, out, act))
+    skip = ops.record("generator.tail_skip", ops.upscale(
+        scale, _tail_skip, tail["skip"], frame, s2d_output))
+    return ops.map(_tail_add_skip, skip, detail)
+
+
+def _input(frame: torch.Tensor, pre_warp: Optional[torch.Tensor],
+           s2d_output: bool, in_ch: int) -> torch.Tensor:
     if pre_warp is None:
         inp = frame
     else:
@@ -122,13 +127,7 @@ def generator_resnet_apply(params, frame: torch.Tensor,
             f"conv_1 takes {in_ch} channels but the input has "
             f"{inp.shape[-1]}: prepare the params with frame_only="
             f"{pre_warp is None}")
-    out = act(conv_bn_apply(params["conv_1"], inp))
-    out = res_blocks_apply(
-        params, [f"block_{i + 1}" for i in range(num_blocks)], out,
-        activation)
-    if s2d_output:
-        return _tail_s2d(params, frame, out, act)
-    return _tail_pixel(params["pixel_tail"], frame, out, act)
+    return inp
 
 
 def _d2s_group_selector() -> np.ndarray:
@@ -220,11 +219,11 @@ def prepare_generator_resnet(params, dtype: torch.dtype,
     }
 
 
-def _tail_s2d(params, frame: torch.Tensor, out: torch.Tensor,
-              act) -> torch.Tensor:
-    """Generator tail in space-to-depth form (see module docstring);
-    equal to deconv2x -> BN -> act -> deconv2x -> tanh -> + bilinear4
-    -> clip followed by space_to_depth(4)."""
+def _tail_s2d_detail(params, out: torch.Tensor, act) -> torch.Tensor:
+    """The s2d tail's detail branch, row by row of ``out``: deconv1's
+    product, tiled bn_2, act, deconv2's block-diagonal product, tanh;
+    with the skip, equal to deconv2x -> BN -> act -> deconv2x -> tanh
+    -> + bilinear4 -> clip followed by space_to_depth(4)."""
     ct1, bn, ct2 = (params["conv_trans_1"], params["bn_2"],
                     params["conv_trans_2"])
     x = torch.matmul(out, ct1["kernel"])
@@ -234,20 +233,27 @@ def _tail_s2d(params, frame: torch.Tensor, out: torch.Tensor,
     x = torch.matmul(x, ct2["kernel"])
     if "bias" in ct2:
         x = x + ct2["bias"]
-    x = torch.tanh(x)
-    upscaled = phase_upscale(frame, params["skip"])
-    return torch.clamp(upscaled + x, -0.5, 0.5)
+    return torch.tanh(x)
 
 
-def _tail_pixel(params, frame: torch.Tensor, out: torch.Tensor,
-                act) -> torch.Tensor:
-    """Generator tail in pixel form: deconv2x -> BN -> act -> deconv2x
-    -> tanh -> + bilinear4(frame) -> clip, (N, 4H, 4W, 3)."""
+def _tail_pixel_detail(params, out: torch.Tensor, act) -> torch.Tensor:
+    """The pixel tail's detail branch: deconv2x -> BN -> act ->
+    deconv2x -> tanh, (N, 4H, 4W, 3)."""
     bn = params["bn_2"]
     x = conv2d_transpose_2x(params["conv_trans_1"], out)
     x = act(x * bn["scale"] + bn["offset"])
-    x = torch.tanh(conv2d_transpose_2x(params["conv_trans_2"], x))
-    upscaled = depth_to_space(phase_upscale(frame, params["skip"]), 4)
+    return torch.tanh(conv2d_transpose_2x(params["conv_trans_2"], x))
+
+
+def _tail_skip(skip: torch.Tensor, frame: torch.Tensor,
+               s2d_output: bool) -> torch.Tensor:
+    """The tail's x4 TF1-bilinear skip of the frame: s2d phase channels,
+    or the HR frame."""
+    upscaled = phase_upscale(frame, skip)
+    return upscaled if s2d_output else depth_to_space(upscaled, 4)
+
+
+def _tail_add_skip(upscaled: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(upscaled + x, -0.5, 0.5)
 
 

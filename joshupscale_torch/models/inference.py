@@ -18,8 +18,10 @@ and the generator's tail run on the HR grid.  ``remove_flow`` is the
 non-temporal variant: no flow net, no state, the generator on the frame
 alone.  ``apply`` is functional like the reference; the engine keeps the
 state in fixed device tensors and commits ``new_state`` into them in
-place.  ``apply_train`` is the step on raw params in training form
-(pixel path, ``Mutables``), which the single-step FRVSR trainer runs.
+place; its ``ops`` run the step on the whole frame or, for
+``parallel.serving.SpatialEngine``, on row slabs.  ``apply_train`` is
+the step on raw params in training form (pixel path, ``Mutables``),
+which the single-step FRVSR trainer runs.
 """
 
 from __future__ import annotations
@@ -28,9 +30,9 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from joshupscale_torch import DeviceLike, resolve_device
+from joshupscale_torch.models.common import WHOLE_FRAME, WholeFrame
 from joshupscale_torch.models.fnet import prepare_flow_resnet
 from joshupscale_torch.models.generator import prepare_generator_resnet
 from joshupscale_torch.ops.image import (
@@ -102,6 +104,12 @@ class InferenceModel:
     def num_last_frames(self) -> int:
         return self.num_flow_frames - 1
 
+    def out_height(self) -> int:
+        return self.frame_height * 4
+
+    def out_width(self) -> int:
+        return self.frame_width * 4
+
     # -- state -------------------------------------------------------------
 
     def init_state(self, batch_size: int = 1, dtype=torch.float32,
@@ -168,31 +176,47 @@ class InferenceModel:
 
     # -- forward -----------------------------------------------------------
 
-    def _pad(self, x: torch.Tensor) -> torch.Tensor:
-        """Zero-pad NHWC ``x`` to the padded size, ``dh // 2`` rows on
-        top (``dw // 2`` columns on the left) and the rest after."""
+    @property
+    def padding(self) -> Tuple[int, int, int, int]:
+        """The frame's zero padding for the flow net: ``(top, bottom,
+        left, right)``, ``dh // 2`` rows on top (``dw // 2`` columns on
+        the left) and the rest after."""
         dh = self.padded_height - self.frame_height
         dw = self.padded_width - self.frame_width
-        if not dh and not dw:
-            return x
-        return F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+        return dh // 2, dh - dh // 2, dw // 2, dw - dw // 2
 
-    def _unpad_flow(self, flow: torch.Tensor, scale: int) -> torch.Tensor:
+    def _pad(self, x, ops: WholeFrame = WHOLE_FRAME):
+        """Zero-pad NHWC ``x`` to the padded size."""
+        pads = self.padding
+        return ops.pad(x, *pads) if any(pads) else x
+
+    def _unpad_flow(self, flow, scale: int, ops: WholeFrame = WHOLE_FRAME):
         """Crop a flow on the padded grid (``scale`` 1: s2d blocks, i.e.
         LR pixels; 4: HR pixels) back to the frame."""
-        oy = (self.padded_height - self.frame_height) // 2 * scale
-        ox = (self.padded_width - self.frame_width) // 2 * scale
-        h, w = self.frame_height * scale, self.frame_width * scale
-        if flow.shape[1] == h and flow.shape[2] == w:
+        pads = self.padding
+        if not any(pads):
             return flow
-        return flow[:, oy:oy + h, ox:ox + w, :]
+        return ops.crop(flow, *(p * scale for p in pads))
 
     def _preprocess(self, cur_frame: torch.Tensor) -> torch.Tensor:
         pre = cur_frame if self.skip_processing else preprocess(cur_frame)
         return pre.to(self.compute_dtype)
 
-    def apply(self, params, cur_frame: torch.Tensor,
-              state: State) -> Tuple[Dict[str, Any], State]:
+    def _warp(self, pre_gen: torch.Tensor, flow: torch.Tensor,
+              row0: int = 0) -> torch.Tensor:
+        """The previous output warped by the flow (of the output rows
+        from ``row0``), in ``compute_dtype``."""
+        cdt = self.compute_dtype
+        if self.u8_state and self.s2d_mode:
+            # The warp gathers the u8 table and dequantizes in its blend.
+            return dense_image_warp_s2d(pre_gen, flow, row0=row0).to(cdt)
+        if self.s2d_mode:
+            return dense_image_warp_s2d(pre_gen.to(cdt), flow, row0=row0)
+        return dense_image_warp(pre_gen.to(cdt), flow, row0=row0)
+
+    def apply(self, params, cur_frame: torch.Tensor, state: State,
+              ops: WholeFrame = WHOLE_FRAME
+              ) -> Tuple[Dict[str, Any], State]:
         """One recurrent step on serving params (``prepare_params``):
         ``(outputs, new_state)``.
 
@@ -202,86 +226,90 @@ class InferenceModel:
         ``skip_processing`` holds; with ``skip_processing``,
         "output_denorm" is the float HR frame and "pre_warp" the HR
         warped state (the play callback's strips; with a flow net).
+        ``ops``: how each layer runs (``models.common.WholeFrame``; the
+        row slabs of ``parallel.serving.SpatialEngine``).
         """
         if self.remove_flow:
-            pre = self._preprocess(cur_frame)
+            pre = ops.map(self._preprocess, cur_frame)
             out = self.generator_apply(params["generator"], pre, None,
-                                       s2d_output=False)
-            return self._hr_outputs(out), state
+                                       s2d_output=False, ops=ops)
+            return self._hr_outputs(out, ops), state
         inter, flow_state = self.apply_flow_stage(
-            params, cur_frame, {"last_frames": state["last_frames"]})
+            params, cur_frame, {"last_frames": state["last_frames"]}, ops)
         outputs, gen_state = self.apply_gen_stage(
-            params, inter, {"pre_gen": state["pre_gen"]})
+            params, inter, {"pre_gen": state["pre_gen"]}, ops)
         return outputs, {**gen_state, **flow_state}
 
     def apply_flow_stage(self, params, cur_frame: torch.Tensor,
-                         state: State) -> Tuple[Dict[str, Any], State]:
+                         state: State, ops: WholeFrame = WHOLE_FRAME
+                         ) -> Tuple[Dict[str, Any], State]:
         """Preprocess, brightness, pad + flow net; returns ``{"pre",
         "flow"[, "bright"]}`` and the new ``{"last_frames"}`` (the
         padded, brightness-normalized frame first)."""
-        pre = self._preprocess(cur_frame)
+        pre = ops.map(self._preprocess, cur_frame)
         cur_pad = pre
         inter = {"pre": pre}
         if self.normalize_brightness:
-            inter["bright"] = brightness(pre)
-            cur_pad = cur_pad - inter["bright"]
-        cur_pad = self._pad(cur_pad)
-        last_frames = [f.to(self.compute_dtype)
-                       for f in state["last_frames"]]
-        flow = self.flow_apply(params["flow"], [cur_pad] + last_frames,
-                               s2d_output=self.s2d_mode)
-        inter["flow"] = self._unpad_flow(flow, 1 if self.s2d_mode else 4)
+            inter["bright"] = ops.reduce(brightness, pre)
+            cur_pad = ops.map(torch.sub, cur_pad, inter["bright"])
+        cur_pad = self._pad(cur_pad, ops)
+        last = state["last_frames"]
+        frames = [cur_pad] + [ops.map(torch.Tensor.to, f, self.compute_dtype)
+                              for f in last]
+        flow = self.flow_apply(params["flow"], frames,
+                               s2d_output=self.s2d_mode,
+                               ops=ops.padded(*self.padding[:2]))
+        inter["flow"] = ops.record("flow", self._unpad_flow(
+            flow, 1 if self.s2d_mode else 4, ops))
         new_state = {
-            "last_frames": [cur_pad.to(state["last_frames"][0].dtype)]
-            + list(state["last_frames"][:-1]),
+            "last_frames": [ops.map(_like, cur_pad, last[0])] + list(
+                last[:-1]),
         }
         return inter, new_state
 
-    def apply_gen_stage(self, params, inter: Dict[str, Any],
-                        state: State) -> Tuple[Dict[str, Any], State]:
+    def apply_gen_stage(self, params, inter: Dict[str, Any], state: State,
+                        ops: WholeFrame = WHOLE_FRAME
+                        ) -> Tuple[Dict[str, Any], State]:
         """Warp + generator (+ moving average); returns the outputs and
         ``{"pre_gen"}``."""
-        cdt = self.compute_dtype
         pre_gen = state["pre_gen"]
-        u8_state = self.u8_state and self.s2d_mode
-        if u8_state:
-            # The warp gathers the u8 table and dequantizes in its blend.
-            pre_warp = dense_image_warp_s2d(pre_gen, inter["flow"]).to(cdt)
-        elif self.s2d_mode:
-            pre_warp = dense_image_warp_s2d(pre_gen.to(cdt), inter["flow"])
-        else:
-            pre_warp = dense_image_warp(pre_gen.to(cdt), inter["flow"])
+        state_ops = ops if self.s2d_mode else ops.scaled(4)
+        pre_warp = state_ops.warp(self._warp, pre_gen, inter["flow"])
         bright = inter.get("bright")
         if bright is not None:
-            pre_warp = pre_warp + bright
+            pre_warp = ops.map(torch.add, pre_warp, bright)
+        pre_warp = ops.record("pre_warp", pre_warp)
 
         if self.output_flow:
             # The clipped warp feeds display and state; the reference's
             # generator is dead code here, so it does not run.
-            out = torch.clamp(pre_warp, -0.5, 0.5)
+            out = ops.map(torch.clamp, pre_warp, -0.5, 0.5)
         else:
             out = self.generator_apply(params["generator"], inter["pre"],
-                                       pre_warp, s2d_output=self.s2d_mode)
+                                       pre_warp, s2d_output=self.s2d_mode,
+                                       ops=ops)
             if self.frame_moving_avg is not None:
-                out = self._moving_avg(out, pre_warp)
-        output_raw = out if bright is None else out - bright
+                out = state_ops.whole(self._moving_avg, out, pre_warp)
+        out = ops.record("output", out)
+        output_raw = out if bright is None else ops.map(torch.sub, out,
+                                                        bright)
 
-        if u8_state:
+        if self.u8_state and self.s2d_mode:
             # Clip first: the brightness can push output_raw out of range.
-            new_pre_gen = postprocess(torch.clamp(output_raw, -0.5, 0.5))
+            new_pre_gen = ops.map(_to_u8, output_raw)
         else:
-            new_pre_gen = output_raw.to(pre_gen.dtype)
+            new_pre_gen = ops.map(_like, output_raw, pre_gen)
         if not self.s2d_mode:
-            outputs = self._hr_outputs(out)
+            outputs = self._hr_outputs(out, ops)
             if self.skip_processing:
-                outputs["pre_warp"] = pre_warp.float()
+                outputs["pre_warp"] = ops.map(torch.Tensor.float, pre_warp)
             return outputs, {"pre_gen": new_pre_gen}
         outputs = {"output_s2d": out}
         if self.skip_processing:
-            outputs["output_denorm"] = depth_to_space(out, 4).float()
-            outputs["pre_warp"] = depth_to_space(pre_warp, 4).float()
+            outputs["output_denorm"] = ops.map(_d2s_float, out)
+            outputs["pre_warp"] = ops.map(_d2s_float, pre_warp)
         elif not self.deferred_display:
-            outputs["output"] = postprocess(depth_to_space(out, 4))
+            outputs["output"] = ops.map(_d2s_u8, out)
         return outputs, {"pre_gen": new_pre_gen}
 
     def apply_train(self, params, cur_frame: torch.Tensor, state: State,
@@ -329,11 +357,12 @@ class InferenceModel:
         }
         return outputs, new_state
 
-    def _hr_outputs(self, out: torch.Tensor) -> Dict[str, Any]:
+    def _hr_outputs(self, out, ops: WholeFrame = WHOLE_FRAME
+                    ) -> Dict[str, Any]:
         """The outputs of an HR (pixel-form) display frame."""
         if self.skip_processing:
-            return {"output_denorm": out.float()}
-        return {"output": postprocess(out)}
+            return {"output_denorm": ops.map(torch.Tensor.float, out)}
+        return {"output": ops.map(postprocess, out)}
 
     def _moving_avg(self, gen: torch.Tensor,
                     pre_warp: torch.Tensor) -> torch.Tensor:
@@ -351,3 +380,19 @@ class InferenceModel:
             return out.reshape(gen.shape)
         return space_to_depth(frame_moving_avg(
             depth_to_space(gen, 4), depth_to_space(pre_warp, 4), cfg), 4)
+
+
+def _like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    return x.to(ref.dtype)
+
+
+def _to_u8(x: torch.Tensor) -> torch.Tensor:
+    return postprocess(torch.clamp(x, -0.5, 0.5))
+
+
+def _d2s_float(x: torch.Tensor) -> torch.Tensor:
+    return depth_to_space(x, 4).float()
+
+
+def _d2s_u8(x: torch.Tensor) -> torch.Tensor:
+    return postprocess(depth_to_space(x, 4))

@@ -49,6 +49,30 @@ class BuiltModel:
     trainable: bool = True
     frozen_paths: tuple = ()
 
+    def num_params(self) -> int:
+        """The number of parameter values (``_meta`` entries left out)."""
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            if isinstance(tree, (list, tuple)):
+                return sum(count(v) for v in tree)
+            return int(np.prod(np.shape(tree)))
+
+        return count(self.strip_meta())
+
+    def strip_meta(self):
+        return strip_meta(self.params)
+
+
+def strip_meta(tree):
+    """``tree`` without its ``_meta`` entries (static config riding in a
+    param dict), dicts and lists walked."""
+    if isinstance(tree, dict):
+        return {k: strip_meta(v) for k, v in tree.items() if k != "_meta"}
+    if isinstance(tree, list):
+        return [strip_meta(v) for v in tree]
+    return tree
+
 
 def _sub_frozen(prefix: str, sub: Optional[BuiltModel]) -> tuple:
     """A sub-model's freeze markers re-rooted under ``prefix``, so that
@@ -274,6 +298,12 @@ MODELS: Dict[str, Callable[..., BuiltModel]] = {
     "frvsr-single": _build_frvsr_single,
     "gan": _build_gan,
 }
+
+
+def register_model(name: str, factory: Callable[..., BuiltModel]) -> None:
+    """Make ``factory`` (``factory(rng, **config) -> BuiltModel``) the
+    model type ``name`` of ``create_models`` configs."""
+    MODELS[name] = factory
 
 
 def _copy_matching(dst_tree, src_tree):

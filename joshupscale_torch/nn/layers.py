@@ -230,6 +230,28 @@ def conv2d_int8(params, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, h, w, out_ch)
 
 
+def deconv_matrix(kernel: np.ndarray) -> np.ndarray:
+    """Deconv kernel (2, 2, O, I) -> the equivalent 1x1 product
+    (I, 4*O) with output channel ``(dy*2 + dx)*O + o``."""
+    _, _, out_ch, in_ch = kernel.shape
+    return np.ascontiguousarray(
+        kernel.transpose(3, 0, 1, 2).reshape(in_ch, 4 * out_ch))
+
+
+def conv2d_transpose_2x_init(rng: np.random.Generator, in_ch: int,
+                             out_ch: int, use_bias: bool = True):
+    """Params of a kernel-2 stride-2 deconv: a glorot-uniform
+    (2, 2, out_ch, in_ch) kernel (the reference's layout and fans)
+    stored as its (in_ch, 4*out_ch) 1x1 product (``deconv_matrix``),
+    plus a zero bias."""
+    kernel = glorot_uniform(rng, (2, 2, out_ch, in_ch), 4 * in_ch,
+                            4 * out_ch)
+    params = {"kernel": torch.from_numpy(deconv_matrix(kernel))}
+    if use_bias:
+        params["bias"] = torch.zeros(out_ch)
+    return params
+
+
 def deconv_kernel(params) -> torch.Tensor:
     """A deconv's (I, 4*O) product in float32, dequantized for int8
     params (``kernel_q * kernel_scale`` per input row, the reference's
@@ -352,11 +374,19 @@ def activation_spec(activation) -> Tuple[str, float]:
     raise ValueError(f"Unknown activation: {name}")
 
 
+# Activation name -> factory of the callable, as the reference keys them
+# (``lrelu`` takes ``alpha`` or ``negative_slope``, default 0.3).
+ACTIVATIONS = {
+    "relu": lambda **kw: relu,
+    "lrelu": lambda negative_slope=0.3, alpha=None, **kw: (
+        lambda x: leaky_relu(
+            x, alpha if alpha is not None else negative_slope)),
+}
+
+
 def get_activation(activation) -> Callable[[torch.Tensor], torch.Tensor]:
     name, alpha = activation_spec(activation)
-    if name == "relu":
-        return relu
-    return lambda x: leaky_relu(x, alpha)
+    return ACTIVATIONS[name](alpha=alpha)
 
 
 def get_train_activation(

@@ -3,6 +3,7 @@
 from joshupscale_torch.ops.image import brightness, postprocess, preprocess
 from joshupscale_torch.ops.resize import (
     resize_bilinear,
+    resize_nearest,
     upscale_bilinear,
     upscale_nearest,
 )
@@ -23,6 +24,7 @@ __all__ = [
     "postprocess",
     "preprocess",
     "resize_bilinear",
+    "resize_nearest",
     "space_to_depth",
     "upscale_bilinear",
     "upscale_nearest",

@@ -137,6 +137,19 @@ def _tf1_tables(out_size: int, in_size: int, dtype: torch.dtype, device):
             torch.from_numpy(frac).to(device, dtype))
 
 
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """General-size TF1 nearest resize (align_corners=F, half_pixel=F):
+    output row ``y`` takes input row ``floor(y * h / out_h)``, and the
+    same for columns.  An integer upscale by the same factor on both
+    axes goes to ``upscale_nearest``."""
+    n, h, w, c = x.shape
+    if out_h % h == 0 and out_w % w == 0 and out_h // h == out_w // w:
+        return upscale_nearest(x, out_h // h)
+    ylo = _tf1_tables(out_h, h, x.dtype, x.device)[0]
+    xlo = _tf1_tables(out_w, w, x.dtype, x.device)[0]
+    return x[:, ylo][:, :, xlo]
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """General-size TF1 bilinear resize (align_corners=F, half_pixel=F).
 

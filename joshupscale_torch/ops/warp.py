@@ -9,7 +9,11 @@ s2d form on a float or u8 table):
 
 The floor corner is clamped to ``[0, size - 2]`` and the interpolation
 weight to ``[0, 1]``, so queries outside the image reproduce the nearest
-edge pixel.  Index math stays in float32: bfloat16 cannot represent
+edge pixel.  ``row0`` serves a row slab of the output (``SpatialEngine``):
+the flow holds rows ``[row0, row0 + rows)`` of the image's grid, the
+queries use those global rows and the whole image is read, so each
+output pixel is the same function of its own query either way.  Index
+math stays in float32: bfloat16 cannot represent
 pixel coordinates above 256 exactly.  ``grid_sample`` is not used: its
 normalised coordinates do not give this grid.
 
@@ -65,20 +69,23 @@ class _SegsumGather(torch.autograd.Function):
         return acc.to(ctx.table_dtype), None
 
 
-def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def dense_image_warp(image: torch.Tensor, flow: torch.Tensor,
+                     row0: int = 0) -> torch.Tensor:
     """Warp a pixel-form image by a per-pixel flow.
 
-    image: (N, H, W, C) float; flow: (N, H, W, 2), channel 0 the y
-    offset, 1 the x offset.  The four corners come from one gather of
+    image: (N, H, W, C) float; flow: (N, Hq, W, 2), channel 0 the y
+    offset, 1 the x offset, for output rows ``[row0, row0 + Hq)`` (the
+    whole frame by default).  The four corners come from one gather of
     ``4C``-lane rows ``[p, p+x1, p+y1, p+x1y1]`` built from edge-clamped
     shifts; the blend runs in ``image.dtype``.
     """
     n, h, w, c = image.shape
+    hq = flow.shape[1]
     dev = image.device
     out_dtype = image.dtype
     flow32 = flow.to(torch.float32)
-    qy = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) \
-        - flow32[..., 0]
+    qy = torch.arange(row0, row0 + hq, device=dev,
+                      dtype=torch.float32).view(1, hq, 1) - flow32[..., 0]
     qx = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) \
         - flow32[..., 1]
     iy, ay = _floor_and_alpha(qy, h)
@@ -93,7 +100,7 @@ def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     if n > 1:
         lin = lin + (torch.arange(n, device=dev) * (h * w)).view(n, 1, 1)
     rows = corners.reshape(n * h * w, 4 * c)[lin.reshape(-1)]
-    rows = rows.reshape(n, h, w, 4, c)
+    rows = rows.reshape(n, hq, w, 4, c)
 
     ay = ay[..., None].to(out_dtype)
     ax = ax[..., None].to(out_dtype)
@@ -104,7 +111,7 @@ def dense_image_warp(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 
 def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
-                         block: int = 4) -> torch.Tensor:
+                         block: int = 4, row0: int = 0) -> torch.Tensor:
     """Warp an s2d image by an s2d flow.
 
     Parameters
@@ -115,15 +122,17 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
         combine runs in bfloat16 on the raw 0..255 values, and one
         float32 affine ``acc/255 - 0.5`` maps back, exact because the
         bilinear weights sum to 1).
-    flow_s2d : (N, Hb, Wb, B*B*2) s2d-form flow (the flow net's head
-        output before its depth_to_space; channel ``(ry, rx, {y, x})``).
+    flow_s2d : (N, Hq, Wb, B*B*2) s2d-form flow (the flow net's head
+        output before its depth_to_space; channel ``(ry, rx, {y, x})``)
+        of the block rows ``[row0, row0 + Hq)`` (all of them by default).
 
     Returns
     -------
-    (N, Hb, Wb, B*B*C) warped image in s2d form, in ``image_s2d``'s
+    (N, Hq, Wb, B*B*C) warped image in s2d form, in ``image_s2d``'s
     dtype (bfloat16 for a uint8 image).
     """
     n, hb, wb, cs = image_s2d.shape
+    hq = flow_s2d.shape[1]
     b = block
     p2 = b * b
     c = cs // p2
@@ -151,7 +160,8 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     phase = torch.arange(p2, device=dev)
     py_off = (phase // b).to(torch.float32)
     px_off = (phase % b).to(torch.float32)
-    by = torch.arange(hb, device=dev, dtype=torch.float32).view(1, hb, 1, 1)
+    by = torch.arange(row0, row0 + hq, device=dev,
+                      dtype=torch.float32).view(1, hq, 1, 1)
     bx = torch.arange(wb, device=dev, dtype=torch.float32).view(1, 1, wb, 1)
     iy, ay = _floor_and_alpha(by * b + py_off - fy_flow, h)
     ix, ax = _floor_and_alpha(bx * b + px_off - fx_flow, w)
@@ -182,7 +192,7 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     # Corner-major copy: each sub-position's c lanes become one dense
     # (N, Hb, Wb, 16, c) slab, so the combine below multiplies dense
     # tensors instead of strided lane slices (same values, same order).
-    slabs = rows.reshape(n, hb, wb, p2, lanes // c, c).permute(
+    slabs = rows.reshape(n, hq, wb, p2, lanes // c, c).permute(
         4, 0, 1, 2, 3, 5).to(out_dtype).contiguous()
 
     # ---- separable combine over the 5x5 possible corner offsets ---------
@@ -194,7 +204,7 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
     px = (ix % b)[..., None]
     wxs = [((1.0 - ax) * (px == sx) + ax * (px == sx - 1)).to(out_dtype)
            for sx in range(b + 1)]
-    acc = torch.zeros((n, hb, wb, p2, c), dtype=out_dtype, device=dev)
+    acc = torch.zeros((n, hq, wb, p2, c), dtype=out_dtype, device=dev)
     for sy in range(b + 1):
         wy = ((1.0 - ay) * (py == sy) + ay * (py == sy - 1)).to(out_dtype)
         for sx in range(b + 1):
@@ -202,7 +212,7 @@ def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
             acc = acc + slab * (wy * wxs[sx])
     if u8:
         acc = (acc.float() * (1.0 / 255.0) - 0.5).to(out_dtype)
-    return acc.reshape(n, hb, wb, p2 * c)
+    return acc.reshape(n, hq, wb, p2 * c)
 
 
 def dense_image_warp_via_s2d(image: torch.Tensor, flow: torch.Tensor,

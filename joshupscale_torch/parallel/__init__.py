@@ -1,6 +1,7 @@
-"""Multi-stream and pipelined serving."""
+"""Serving over several devices: independent streams, row-split frames
+and the two-stage pipeline."""
 
 from joshupscale_torch.parallel.pipeline import PipelinedEngine
-from joshupscale_torch.parallel.serving import ShardedEngine
+from joshupscale_torch.parallel.serving import ShardedEngine, SpatialEngine
 
-__all__ = ["PipelinedEngine", "ShardedEngine"]
+__all__ = ["PipelinedEngine", "ShardedEngine", "SpatialEngine"]

@@ -15,8 +15,11 @@ a serving package and, under ``export.onnx`` (``onnx_fp16``), the
 deployment graph ``model.onnx`` (``model_fp16.onnx``).
 ``train.data_workers`` > 0 runs the data pipeline in that many worker
 processes (``data/mploader.py``).  Runs on the CUDA device unless
-``--cpu``.  Not ported yet: the data-parallel mesh (``--num-devices`` >
-1 raises, ROADMAP 14d); the reference's profiler window does not run.
+``--cpu``.  With TensorBoard on, ``train.profile`` (default true)
+traces global steps 5..10 into ``<log_dir>/profile``, beside
+``<log_dir>/tb``, as the reference does (``fit``'s profiler window).
+Not ported yet: the data-parallel mesh (``--num-devices`` > 1 raises,
+ROADMAP 14d).
 
 Usage: ``python -m joshupscale_torch.training.cli -c config.yaml [--cpu]``
 """
@@ -256,6 +259,9 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
             checkpoint_dir=ckpt_dir, monitor=setup.monitor,
             early_stopping_patience=train_cfg.get("early_stopping_patience"),
             epoch_callback=play_cb, tensorboard_dir=tb_dir,
+            profile_dir=(os.path.join(log_dir, "profile")
+                         if tb_dir and train_cfg.get("profile", True)
+                         else None),
             metric_lag=train_cfg.get("metric_lag"),
             stage_inputs=bool(train_cfg.get("stage_inputs", True)))
     finally:

@@ -64,6 +64,14 @@ def freeze_mask(params, frozen_paths: Tuple[str, ...],
     return walk(params, "")
 
 
+def apply_mask(grads, mask):
+    """``grads * mask`` leaf by leaf over two trees of ``mask``'s shape
+    (``freeze_mask``'s multipliers): the reference's ``apply_mask``."""
+    if isinstance(mask, dict):
+        return {k: apply_mask(grads[k], m) for k, m in mask.items()}
+    return grads * mask
+
+
 def _leaf(tree, path: str):
     for part in path.split("."):
         tree = tree[part]
@@ -630,6 +638,17 @@ class TensorBoardLogger:
             self._writer.add_scalar(k, v, step)
         self._writer.flush()
 
+    def histograms(self, params, step: int) -> None:
+        """A histogram of every weight, by its dotted path in the
+        reference's layout (the reference logs them every 20 epochs)."""
+        if self._writer is None:
+            return
+        from joshupscale_torch.export.importer import flatten_params
+
+        for path, arr in flatten_params(params).items():
+            self._writer.add_histogram(path, arr, step)
+        self._writer.flush()
+
     def images(self, tag: str, frames: np.ndarray, step: int) -> None:
         """(N, H, W, 3) uint8 RGB frames."""
         if self._writer is None:
@@ -711,6 +730,49 @@ class _InputStager:
         self._thread.join(timeout=5)
 
 
+class _ProfileWindow:
+    """``fit``'s profiler window: ``step()`` before each step opens a
+    ``torch.profiler`` session once ``global_step`` reaches
+    ``batch[0]`` and closes it once ``global_step`` passes ``batch[1]``;
+    ``close()`` ends an open one.  Closing writes the trace into
+    ``profile_dir``.  No-op without ``profile_dir``."""
+
+    def __init__(self, profile_dir: Optional[str], batch: Tuple[int, int],
+                 device: torch.device):
+        self.profile_dir = profile_dir
+        self.batch = batch
+        self.device = device
+        self.global_step = 0
+        self._session = None
+        self._done = profile_dir is None
+
+    def step(self) -> None:
+        if self._done:
+            return
+        if self._session is None and self.global_step >= self.batch[0]:
+            from torch.profiler import (
+                ProfilerActivity,
+                profile,
+                tensorboard_trace_handler,
+            )
+
+            activities = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(ProfilerActivity.CUDA)
+            self._session = profile(
+                activities=activities,
+                on_trace_ready=tensorboard_trace_handler(self.profile_dir))
+            self._session.start()
+        elif self._session is not None and self.global_step > self.batch[1]:
+            self.close()
+
+    def close(self) -> None:
+        if self._session is not None:
+            session, self._session = self._session, None
+            self._done = True
+            session.stop()
+
+
 def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
                                                             np.ndarray]],
         epochs: int, steps_per_epoch: int, rng: torch.Generator,
@@ -721,6 +783,8 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
         log_fn: Callable[[str], None] = print,
         epoch_callback: Optional[Callable] = None,
         tensorboard_dir: Optional[str] = None,
+        profile_dir: Optional[str] = None,
+        profile_batch: Tuple[int, int] = (5, 10),
         metric_lag: Optional[int] = None, stage_inputs: bool = True,
         cache_val_on_device: bool = False):
     """Epoch loop: train, validate, checkpoint best and latest.
@@ -733,6 +797,12 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
     device (None: read them all once an epoch; 0: after every step).
     Stops on a non-finite train metric (TerminateOnNaN) and after
     ``early_stopping_patience`` epochs without a better monitored value.
+    With ``profile_dir``, a ``torch.profiler`` trace (host ops, and the
+    card's kernels on CUDA) covers global steps ``profile_batch[0]`` to
+    ``profile_batch[1]`` inclusive, once, and is written there as
+    TensorBoard's profile plugin reads it (``*.pt.trace.json``), also
+    when ``fit`` raises inside the window (the reference's window, whose
+    trace re-opens every other step after it, runs once here).
     Returns ``(state, history)``.
     """
     device = rng.device
@@ -745,6 +815,7 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
     tb = TensorBoardLogger(tensorboard_dir) if tensorboard_dir else None
     spe = getattr(step_fn, "steps_per_execution", 1)
     exact = getattr(step_fn, "exact_float32", False)
+    window = _ProfileWindow(profile_dir, profile_batch, device)
     if spe > 1 and steps_per_epoch % spe:
         log_fn(f"steps_per_epoch={steps_per_epoch} is not a multiple of "
                f"steps_per_execution={spe}; running "
@@ -785,7 +856,9 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
             acc.reset()
             t0 = time.time()
             for _ in range(max(steps_per_epoch // spe, 1)):
+                window.step()
                 state, metrics = step_fn(state, next(batch_iter), rng=rng)
+                window.global_step += spe
                 pending.append(metrics)
                 if metric_lag is not None:
                     drain(metric_lag)
@@ -844,6 +917,7 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
                 log_fn(f"early stopping at epoch {epoch}")
                 break
     finally:
+        window.close()
         if isinstance(batch_iter, _InputStager):
             batch_iter.close()
     return state, history

@@ -1,1 +1,1 @@
-"""Small helpers of the port (weight migration)."""
+"""Small helpers of the port (weight migration, display)."""

@@ -841,3 +841,88 @@ def test_two_worker_loader_under_a_cuda_context(cuda, tmp_path):
     it.close()
     after = {n for n in os.listdir("/dev/shm") if n.startswith("psm_")}
     assert not (after - before)
+
+
+# ---------------------------------------------------------------------------
+# SpatialEngine: one stream's frame split by rows
+
+
+@pytest.mark.parametrize("c,shape", [(64, (1, 270, 480)), (48, (1, 37, 50))])
+def test_resblock_kernel_on_row_slab_plus_halo(gen, cuda, c, shape):
+    """K1 on (1, rows + 2, W, C) slabs with their real halo rows (fewer
+    at the frame's edges) and conv_2's residual the same slab plus
+    halo: the interior rows equal the whole-frame launch's bit for bit
+    (the per-pixel reduction does not depend on H)."""
+    from joshupscale_torch.parallel.rows import Split
+
+    x, w, s, t, _ = _operands(gen, c, torch.bfloat16, shape, cuda)
+    h = shape[1]
+    whole = resblock_conv3x3(resblock_conv3x3(x, w, s, t), w, s, t, x)
+    for slabs in (2, 4):
+        split = Split([i * h // slabs for i in range(slabs)] + [h],
+                      [cuda] * slabs)
+        xs = split.scatter(x)
+        ys = split.with_halo(lambda i, u: resblock_conv3x3(u, w, s, t),
+                             [xs], 1, 1)
+        before = resblock_conv3x3.launches
+        out = split.with_halo(
+            lambda i, u, r: resblock_conv3x3(u, w, s, t, r), [ys, xs], 1, 1)
+        assert resblock_conv3x3.launches == before + slabs
+        assert torch.equal(split.gather(out, cuda), whole)
+
+
+@pytest.mark.parametrize("arch", ["quality", "ps2"])
+def test_spatial_engine_on_card_matches_engine(gen, cuda, arch):
+    """``SpatialEngine(['cuda:0', 'cuda:0'])`` (eager, K1 on slab plus
+    halo, K2 per slab) against ``Engine`` (its replayed graph) on the
+    card, 4 frames and a frame after ``reset()``: within 1 u8 step (bit
+    for bit unless a library conv picks another algorithm for a slab's
+    height; ``chip_smoke.py`` names the layer), with the whole frame's
+    K1 count per slab and one K2 per slab."""
+    from joshupscale_torch.parallel import SpatialEngine
+
+    config = (_quality_config("bfloat16") if arch == "quality"
+              else _ps2_config("bfloat16"))
+    built = create_models(config, seed=4)["inference"]
+    m = built.obj
+    frames = gen.integers(0, 256, (4, m.frame_height, m.frame_width, 3)
+                          ).astype(np.uint8)
+    engine = Engine(m, built.params)
+    want = [engine.process(f) for f in frames]
+    spatial = SpatialEngine(m, built.params, devices=["cuda:0", "cuda:0"])
+    k1, k2 = resblock_conv3x3.launches, d2s_display_u8.launches
+    got = [spatial.process(f) for f in frames]
+    k1_frame = engine.graph_launches["resblock_conv3x3"]
+    assert resblock_conv3x3.launches - k1 == 4 * 2 * k1_frame
+    assert d2s_display_u8.launches - k2 == 4 * 2
+    spatial.reset()
+    got.append(spatial.process(frames[0]))
+    for g, w_ in zip(got, want + want[:1]):
+        assert g.shape == w_.shape
+        assert np.abs(g.astype(np.int32) - w_.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("arch", ["quality", "ps2"])
+def test_spatial_engine_across_card_and_cpu(gen, cuda, arch):
+    """``SpatialEngine(['cuda:0', 'cpu'])``: slab 0 on the card, slab 1
+    on the CPU (its plain versions), so every halo row, gathered table
+    and whole-tensor layer crosses devices and each slab must read its
+    own device's params.  Against ``Engine`` on the card in float32,
+    4 frames: u8 within 1 step, the card-vs-CPU bound of
+    ``test_engine_cuda_matches_cpu``."""
+    from joshupscale_torch.parallel import SpatialEngine
+
+    config = (_quality_config("float32") if arch == "quality"
+              else _ps2_config("float32"))
+    built = create_models(config, seed=4)["inference"]
+    m = built.obj
+    frames = gen.integers(0, 256, (4, m.frame_height, m.frame_width, 3)
+                          ).astype(np.uint8)
+    engine = Engine(m, built.params)
+    spatial = SpatialEngine(m, built.params, devices=["cuda:0", "cpu"])
+    assert [d.type for d in spatial.devices] == ["cuda", "cpu"]
+    for f in frames:
+        got, want = spatial.process(f), engine.process(f)
+        assert got.shape == want.shape
+        assert np.abs(got.astype(np.int32)
+                      - want.astype(np.int32)).max() <= 1

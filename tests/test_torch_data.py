@@ -285,13 +285,30 @@ def test_val_dataset_and_sources_match_reference(sequences):
     assert create_dataset(files, seed=1) == j_create_dataset(files, seed=1)
 
 
+def _tf_compressed(path, tmp_path):
+    """``path``'s records rewritten by ``tf.io.TFRecordWriter`` as GZIP
+    and ZLIB files: {compression_type: file}."""
+    import tensorflow as tf
+
+    from joshupscale_torch.data import tfrecord
+
+    files = {}
+    for kind in ("GZIP", "ZLIB"):
+        files[kind] = str(tmp_path / f"pairs_{kind.lower()}.tfrecords")
+        with tf.io.TFRecordWriter(files[kind], options=kind) as writer:
+            for rec in tfrecord.read_records(path):
+                writer.write(rec)
+    return files
+
+
 def test_unported_sources_and_workers_raise(sequences, tmp_path):
     """The TFRecord ops and the multiprocess loader, which raised until
     ROADMAP 14c, now build: a pair-example file made from the PNG
     sequences gives the reference's elements; ``num_workers=2`` gives a
     ``MultiprocessLoader`` (its stream: ``tests/test_torch_mploader.py``).
-    What still raises is what the reference raises: a compressed source
-    without tensorflow, an unseeded shard."""
+    GZIP and ZLIB files give the reference's elements (read through
+    tensorflow there, through the stdlib here).  What raises is an
+    unknown ``compression_type`` and an unseeded shard."""
     from joshupscale_torch.data import tfrecord
     from joshupscale_torch.data.mploader import MultiprocessLoader
 
@@ -319,8 +336,21 @@ def test_unported_sources_and_workers_raise(sequences, tmp_path):
                                   num_workers=2)
     assert isinstance(loader, MultiprocessLoader)
     assert loader.num_workers == 2
-    with pytest.raises(ValueError, match="compression"):
-        create_dataset([{"name": "TFRecordDatasetOp", "path": path,
-                         "compression_type": "ZLIB"}])
+    # Compressed sources: files written by tensorflow's own writer give
+    # the reference's elements (its tensorflow reader); an unknown type
+    # is refused (tensorflow logs it and reads the file uncompressed).
+    for kind, file in _tf_compressed(path, tmp_path).items():
+        config = [{"name": "TFRecordDatasetOp", "path": file,
+                   "compression_type": kind},
+                  {"name": "TakeOp", "size": 1},
+                  {"name": "ParsePairExampleOp"}]
+        got, want = (list(create_dataset(config, seed=4)),
+                     list(j_create_dataset(config, seed=4)))
+        assert len(got) == len(want) == 1
+        _same(got[0], want[0])
+    for kind in ("BZIP2", "gzip", "NONE"):
+        with pytest.raises(ValueError, match="compression_type"):
+            create_dataset([{"name": "TFRecordDatasetOp", "path": path,
+                             "compression_type": kind}])
     with pytest.raises(ValueError, match="requires a seed"):
         create_dataset(_chains(sequences)["u8"], shard=(2, 1))

@@ -130,3 +130,46 @@ def test_early_close_leaves_no_segment(chain):
     while (_shm_segments() - before) and time.monotonic() < deadline:
         time.sleep(0.5)
     assert not (_shm_segments() - before)
+
+
+@pytest.mark.parametrize("kind", ["GZIP", "ZLIB"])
+def test_compressed_shards_through_workers(chain, tmp_path, kind):
+    """The chain's file rewritten by tensorflow's writer as GZIP / ZLIB:
+    two workers give the in-process shards' batches, which are the
+    uncompressed chain's, with or without ``pure_python``.  The
+    reference reads the file through tensorflow; its pure-Python reader
+    refuses it (a deliberate difference: the port decodes either way)."""
+    import tensorflow as tf
+
+    from joshupscale_tpu.data.pipeline import (
+        create_dataset as j_create_dataset,
+    )
+
+    path = str(tmp_path / f"pairs.{kind.lower()}.tfrecords")
+    with tf.io.TFRecordWriter(path, options=kind) as writer:
+        for rec in tfr.read_records(chain[0]["path"]):
+            writer.write(rec)
+    source = {"name": "TFRecordDatasetOp", "path": path,
+              "compression_type": kind}
+    packed = [source] + chain[1:]
+    got = list(create_train_dataset(packed, 2, seed=SEED, num_workers=2))
+    batch = [{"name": "BatchOp", "batch_size": 2}]
+    for pure in (False, True):
+        shards = [iter(create_dataset(
+            [{**source, "pure_python": pure}] + chain[1:] + batch,
+            seed=SEED, shard=(2, i))) for i in (0, 1)]
+        local = [next(shards[k]) for k in (0, 1, 0, 1, 0)]
+        plain = list(create_dataset(chain + batch, seed=SEED, shard=(2, 0)))
+        assert len(got) == len(local) == 5
+        for g, l in zip(got, local):
+            for k in g:
+                np.testing.assert_array_equal(g[k], l[k], err_msg=k)
+        for l, p in zip(local[0::2], plain):
+            np.testing.assert_array_equal(l["input"], p["input"])
+    want = list(j_create_dataset([source, {"name": "ParsePairExampleOp"}]))
+    mine = list(create_dataset([source, {"name": "ParsePairExampleOp"}]))
+    assert len(want) == len(mine) == 5
+    for a, b in zip(mine, want):
+        np.testing.assert_array_equal(a["input"], b["input"])
+    with pytest.raises(ValueError, match="compressed"):
+        list(j_create_dataset([{**source, "pure_python": True}]))

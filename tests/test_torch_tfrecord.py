@@ -8,6 +8,7 @@ and single chains give the reference's elements bit for bit, against
 both of its readers (tf.data and its pure-python codec).
 """
 
+import gzip
 import os
 
 import numpy as np
@@ -169,11 +170,12 @@ def test_tfrecord_chains_match_reference(records, kind, pure_python):
                                   seed=5))
 
 
-def test_shards_match_reference_and_cover_one_pass(records):
+def test_shards_match_reference_and_cover_one_pass(records, tmp_path):
     """``shard=(n, i)``: the port's shards are the reference's, record
     streams and shuffled file lists (``GlobOp`` + ``ListShuffleOp``);
     the union of the shards is one pass of the unsharded stream; an
-    unseeded shard raises; a compressed source raises."""
+    unseeded shard raises; a GZIP copy of the source gives its shards;
+    an unknown compression type raises."""
     plain = _chain(records["pair"], "pair")[:2]
     cfg = plain + [{"name": "RandomCropOp", "crop_size": 8, "num_img": 1}]
     digest = lambda stream: sorted(  # noqa: E731
@@ -197,7 +199,13 @@ def test_shards_match_reference_and_cover_one_pass(records):
     with pytest.raises(ValueError, match="requires a seed"):
         create_dataset(cfg, shard=(2, 0))
     next(iter(create_dataset(cfg, shard=(1, 0))))
+    packed = str(tmp_path / "pair.tfrecords.gz")
+    with open(records["pair"], "rb") as f, gzip.open(packed, "wb") as g:
+        g.write(f.read())
+    gz = [{**cfg[0], "path": packed, "compression_type": "GZIP"}] + cfg[1:]
+    _same_stream(create_dataset(gz, seed=9, shard=(2, 1)),
+                 create_dataset(cfg, seed=9, shard=(2, 1)))
     with pytest.raises(ValueError, match="compression"):
         create_dataset([{"name": "TFRecordDatasetOp",
                          "path": records["pair"],
-                         "compression_type": "GZIP"}])
+                         "compression_type": "LZ4"}])
