@@ -67,7 +67,16 @@ through ``create_runtime`` (68 K1 + 1 K2 a step); ``load_trained_params``
 on the fit's checkpoint served bit for bit with the package; and the
 ONNX graphs run on the card (``run_graph_torch``) against the float32
 ``Engine``: f32 within u8 max 1, fp16 and an int8 QDQ graph (ranges
-from ``calibrate`` on the card) within the card-vs-CPU bound.  Then it
+from ``calibrate`` on the card) within the card-vs-CPU bound.  The mesh
+phase (``phase_mesh``) follows: the data-parallel step
+(``parallel.mesh``) of the full-width FRVSR (float32, global batch 4)
+on 2 gloo ranks sharing the card, 2 steps against the same steps in
+this process (``tools.mesh_parity``: loss and gradients within the
+card-vs-CPU step's bounds, the ranks' params bit for bit), one damped
+GAN step the same way (the same gate decision), the ranks' all-reduce
+count and gloo's all-reduce time, and rank 0's params served as a
+package (68 K1 + 1 K2 a step, frames against the one-process params'
+package).  Then it
 drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
@@ -1951,6 +1960,188 @@ def phase_gan(torch, seed, device, out_dir):
     return res
 
 
+MESH_DEVICES = ["cuda:0", "cuda:0"]  # two gloo ranks share the card
+MESH_STEPS = 2
+# The GAN step's gen_loss, mesh against one process: the bound of the
+# reference's own full-architecture data-parallel check
+# (tests/test_full_arch_multichip.py).
+MESH_GEN_LOSS_RTOL = 2e-3
+
+
+def mesh_package(name, models, flat, out_dir):
+    """A serving package (270x480, bf16, u8 frames) of the FRVSR nets'
+    params ``flat`` (a mesh run's, flat numpy) at ``out_dir/name``."""
+    from joshupscale_torch.export.package import save_package
+    from joshupscale_torch.export.weights import from_flat_numpy
+    from joshupscale_torch.models.registry import create_models
+
+    cfg = {n: dict(models[n]) for n in ("flow", "generator", "inference")}
+    cfg["inference"].update(frame_height=H, frame_width=W,
+                            compute_dtype="bfloat16",
+                            skip_processing=False)
+    built = create_models(cfg, seed=0)["inference"]
+    built.params = from_flat_numpy({k: v for k, v in flat.items()
+                                    if k.split(".")[0] in ("flow",
+                                                           "generator")})
+    path = os.path.join(out_dir, name)
+    save_package(path, cfg, built)
+    return path
+
+
+def mesh_nudge(flat, factor):
+    """Flat FRVSR params with the first convs' kernels scaled by
+    ``factor``."""
+    out = dict(flat)
+    for net in ("flow", "generator"):
+        key = f"{net}.conv_1.kernel"
+        out[key] = flat[key] * np.float32(factor)
+    return out
+
+
+def phase_mesh(torch, seed, device, out_dir):
+    """The data-parallel mesh (``parallel.mesh``): full-width FRVSR
+    (``TRAIN_MODELS``, float32, global batch 4, T = 10, crop 32) for
+    ``MESH_STEPS`` steps on 2 gloo ranks sharing the card, against the
+    same steps in this process on the same global batches and noise
+    (``tools.mesh_parity``): the loss within ``TRAIN_LOSS_RTOL``, every
+    all-reduced gradient against the one-process gradient at the ranks'
+    params (``replay_grads``) within the larger of ``TRAIN_GRAD_RTOL``
+    and 3x the one-process step's own change there under the
+    ``GAN_NUDGES`` of the first convs' kernels (after the first update
+    the flow heads are off zero and the warp's gradient jumps where a
+    flow crosses an integer, as in the GAN phase), the params within
+    ``2 * lr * steps``, the ranks' params bit for bit; one GAN step
+    (``GAN_MODELS``, damped, float32) the same way: the same gate
+    decision, the EMAs printed, gen_loss within
+    ``MESH_GEN_LOSS_RTOL``; then rank 0's FRVSR params served as a
+    package with the counts set to 0 (68 K1 + 1 K2 a step), its frames
+    against the one-process params' package.  One launch runs both mesh
+    runs; the rank spawn time is rank 0's entry into its first run less
+    the launch's start."""
+    from joshupscale_torch.export.weights import to_flat_numpy
+    from joshupscale_torch.models.registry import create_models
+    from joshupscale_torch.parallel.mesh import launch
+    from joshupscale_torch.runtime.engine import create_runtime
+    from joshupscale_torch.tools import mesh_parity as mp
+    from joshupscale_torch.training.frvsr import draw_recurrent_noise
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+
+    def noises(n, batch):
+        return [{k: v.numpy() for k, v in draw_recurrent_noise(
+            4, batch["input"].shape, gen, "cpu").items()} for _ in range(n)]
+
+    models = json.loads(json.dumps(TRAIN_MODELS))
+    models["frvsr"]["compute_dtype"] = "float32"
+    batches = train_batches(MESH_STEPS, seed)
+    frvsr = mp.Run(models, "frvsr", batches,
+                   noises(MESH_STEPS, batches[0]), seed=seed)
+    gan_models = gan_config("unused", "float32")["models"]
+    gan_built = create_models(gan_models, seed=seed)["gan"]
+    damp_gan(torch, gan_built.params["gen"])
+    gan_batch = train_batches(1, seed + 1)
+    gan = mp.Run(gan_models, "gan", gan_batch, noises(1, gan_batch[0]),
+                 params={g: to_flat_numpy(gan_built.params[g])
+                         for g in ("gen", "discr")}, seed=seed)
+    del gan_built
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    launched = time.time()
+    probed = launch(mp.run_and_probe, len(MESH_DEVICES), [frvsr, gan],
+                    devices=MESH_DEVICES)
+    meshed = probed["runs"]
+    spawn_s = meshed[0]["started"] - launched
+    launch_s = time.time() - launched
+    one = mp.run_steps(None, frvsr, device)
+    at = meshed[0]["update_params"]
+    replay = mp.replay_grads(frvsr, at, device)
+    # The one-process step's own change under nudges of the first convs'
+    # kernels, at each update's params (as gan_card_vs_cpu bounds).
+    own = []
+    for i, flat in enumerate(at):
+        nudged = mp.replay_grads(frvsr, [mesh_nudge(flat, n)
+                                         for n in GAN_NUDGES], device,
+                                 updates=[i] * len(GAN_NUDGES))
+        own.append(max(mp.rel_l2(g[p], replay[i][p]) for g in nudged
+                       for p in g if np.any(replay[i][p])))
+    errs = [max(mp.rel_l2(meshed[0]["grads"][i][p], ref)
+                for p, ref in replay[i].items()) for i in range(len(at))]
+    bounds = [max(TRAIN_GRAD_RTOL, 3 * o) for o in own]
+    one_gan = mp.run_steps(None, gan, device)
+    if any(k.launches for k in kernels):
+        raise AssertionError("mesh: a kernel launched in a train step")
+    res = {"frvsr": mp.compare(one, meshed[0], replay),
+           "frvsr_free": mp.compare(one, meshed[0]),
+           "gan": mp.compare(one_gan, meshed[1]), "spawn_s": spawn_s,
+           "launch_s": launch_s, "all_reduce_ms": probed["all_reduce_ms"],
+           "all_reduces": meshed[0]["all_reduces"], "grad_errs": errs,
+           "own_change": own, "grad_bounds": bounds}
+    f, g = res["frvsr"], res["gan"]
+    lr = TRAIN_MODELS["frvsr"]["learning_rate"]
+    param_bound = 2 * lr * MESH_STEPS + 1e-6
+    log(f"mesh frvsr ({len(MESH_DEVICES)} gloo ranks on {MESH_DEVICES[0]}, "
+        f"flow 64x10, generator 64x24, global batch {TRAIN_BATCH}, T = "
+        f"{TRAIN_T}, crop {TRAIN_CROP}, float32, {MESH_STEPS} steps): loss "
+        f"relative error {f['loss_rel']:.2e} (bound {TRAIN_LOSS_RTOL:g}); "
+        f"worst gradient relative L2 error {f['grad_rel']:.2e} at "
+        f"{f['grad_where']} against the one-process step at the ranks' "
+        f"params; by update {[f'{e:.2e}' for e in errs]} against bounds "
+        f"{[f'{x:.2e}' for x in bounds]} (the larger of "
+        f"{TRAIN_GRAD_RTOL:g} and 3x the one-process step's own largest "
+        f"change under {len(GAN_NUDGES)} nudges of the first convs' "
+        f"kernels by 1e-7: {[f'{o:.2e}' for o in own]}); "
+        f"{res['frvsr_free']['grad_rel']:.2e} against the free-running "
+        f"one-process run; params max diff {f['param_max_diff']:.3g} "
+        f"(bound {param_bound:.3g}); ranks' params bit-identical: "
+        f"{f['ranks_identical']}; step ms one process "
+        f"{[round(x, 1) for x in one['step_ms']]}, mesh "
+        f"{[round(x, 1) for x in meshed[0]['step_ms']]}")
+    log(f"mesh gan (GAN_MODELS damped, float32, 1 step): gate decisions one "
+        f"process {g['gates'][0]}, mesh {g['gates'][1]}; EMAs (t_balance1, "
+        f"t_balance2) one process {g['emas'][0]}, mesh {g['emas'][1]}; "
+        f"gen_loss relative error {g['loss_rel']:.2e} (bound "
+        f"{MESH_GEN_LOSS_RTOL:g}); ranks' params bit-identical: "
+        f"{g['ranks_identical']}; step ms one process "
+        f"{one_gan['step_ms'][0]:.1f}, mesh {meshed[1]['step_ms'][0]:.1f}")
+    log(f"mesh ranks: spawn {spawn_s:.1f} s (launch to rank 0's first run), "
+        f"launch in all {launch_s:.1f} s; all-reduces a FRVSR step "
+        f"{res['all_reduces']}; ms an all-reduce (gloo, float32, by size; "
+        f"the tensor on the card or copied through the host): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["all_reduce_ms"].items()))
+    if (f["loss_rel"] > TRAIN_LOSS_RTOL
+            or any(e > x for e, x in zip(errs, bounds))
+            or f["param_max_diff"] > param_bound
+            or not f["ranks_identical"] or g["gates"][0] != g["gates"][1]
+            or g["loss_rel"] > MESH_GEN_LOSS_RTOL
+            or not g["ranks_identical"]):
+        raise AssertionError("mesh: the sharded step disagrees with the "
+                             "one-process step beyond the bounds")
+
+    res["export_launches"], (engine, frames) = serve_package(
+        torch, "mesh export",
+        mesh_package("mesh_package", models, meshed[0]["params"], out_dir),
+        seed, device)
+    engine.reset()
+    got = [engine.process(fr) for fr in frames]
+    single = create_runtime(
+        mesh_package("one_package", models, one["params"], out_dir),
+        device=device)
+    want = [single.process(fr) for fr in frames]
+    res["frames_exact"] = all(np.array_equal(a, b)
+                              for a, b in zip(got, want))
+    res["frames_max_diff"] = max(
+        card_vs_cpu("mesh export", f"frame {i}", a, b,
+                    against="the one-process params' package")
+        for i, (a, b) in enumerate(zip(got, want)))
+    log(f"mesh export: frames bit for bit with the one-process params' "
+        f"package {res['frames_exact']} (u8 max {res['frames_max_diff']})")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"mesh: phase took {res['seconds']:.1f} s")
+    return res
+
+
 DOOR_EXAMPLES = 8  # pair examples written to the TFRecord file
 DOOR_BATCHES = 6  # loader batches held against the in-process shards
 DOOR_TIMED_BATCHES = 8  # loader batches timed alone, after those
@@ -2501,6 +2692,7 @@ def main() -> int:
     from joshupscale_torch.kernels import _build
     from joshupscale_torch.tools.timing import card_line
 
+    started = time.perf_counter()
     device = resolve_device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -2546,6 +2738,7 @@ def main() -> int:
         train = phase_train(torch, args.seed, device, train_dir)
         gan = phase_gan(torch, args.seed, device, train_dir)
         doors = phase_doors(torch, args.seed, device, train_dir)
+        mesh = phase_mesh(torch, args.seed, device, train_dir)
     paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
     paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
     paths["doors export"] = (*doors.pop("engine"), K1_PER_FRAME, 1)
@@ -2586,6 +2779,7 @@ def main() -> int:
                "gan export": gan["export_launches"],
                "doors export": doors["export_launches"],
                "doors load_trained_params": doors["loaded_launches"],
+               "mesh export": mesh["export_launches"],
                "gan play (one prediction, f32)": (gan["play_k1"], 0),
                **{name: (spatial[name]["k1"], spatial[name]["k2"])
                   for name in spatial}}
@@ -2719,6 +2913,18 @@ def main() -> int:
         f"{doors['onnx_fp16'][0]}, int8 QDQ max {doors['onnx_int8'][0]}; "
         f"runner {doors['onnx_f32'][1]:.1f} ms a frame (f32); phase "
         f"{doors['seconds']:.1f} s on {card}")
+    f, g = mesh["frvsr"], mesh["gan"]
+    log(f"mesh (2 gloo ranks on one card, full-width FRVSR float32, global "
+        f"batch {TRAIN_BATCH}): loss rel {f['loss_rel']:.2e}, worst "
+        f"gradient rel {f['grad_rel']:.2e}, ranks bit-identical "
+        f"{f['ranks_identical']}, step median one process "
+        f"{f['step_ms'][0]:.1f} ms, mesh {f['step_ms'][1]:.1f} ms; GAN "
+        f"gates {g['gates'][1]} (one process {g['gates'][0]}), gen_loss "
+        f"rel {g['loss_rel']:.2e}, step {g['step_ms'][0]:.1f} / "
+        f"{g['step_ms'][1]:.1f} ms; served 68 K1 + 1 K2 a step, u8 max "
+        f"{mesh['frames_max_diff']} against the one-process params; spawn "
+        f"{mesh['spawn_s']:.1f} s; phase {mesh['seconds']:.1f} s on {card}")
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -346,3 +346,52 @@ def decode_model(buf: bytes) -> Dict[str, Any]:
         "inputs": [decode_value_info(v) for v in graph.get(11, [])],
         "outputs": [decode_value_info(v) for v in graph.get(12, [])],
     }
+
+
+def _fields(buf: bytes):
+    """Each top-level field of a message in order: ``(field, wire, raw,
+    value)``, ``raw`` its bytes as they stand (tag included), ``value``
+    the payload of a length-delimited field (else None)."""
+    pos = 0
+    while pos < len(buf):
+        start = pos
+        key, pos = _read_varint(buf, pos)
+        field, wire = key >> 3, key & 7
+        value = None
+        if wire == 0:
+            _, pos = _read_varint(buf, pos)
+        elif wire == 1:
+            pos += 8
+        elif wire == 2:
+            ln, pos = _read_varint(buf, pos)
+            value = buf[pos:pos + ln]
+            pos += ln
+        elif wire == 5:
+            pos += 4
+        else:
+            raise ValueError(f"unsupported wire type {wire}")
+        yield field, wire, buf[start:pos], value
+
+
+def rewrite_initializers(buf: bytes, fn) -> bytes:
+    """A serialized ModelProto with each graph initializer replaced by
+    the TensorProto of ``fn(name, array)`` (None keeps the initializer);
+    every other byte stays as it was."""
+
+    def graph(g: bytes) -> bytes:
+        out = bytearray()
+        for field, wire, raw, value in _fields(g):
+            if field == 5 and wire == 2:
+                name, arr = tensor_to_array(value)
+                new = fn(name, arr)
+                if new is not None:
+                    out += _len_field(5, make_tensor(name, new))
+                    continue
+            out += raw
+        return bytes(out)
+
+    out = bytearray()
+    for field, wire, raw, value in _fields(buf):
+        out += (_len_field(7, graph(value)) if field == 7 and wire == 2
+                else raw)
+    return bytes(out)

@@ -48,6 +48,16 @@ def save_package(path: str, model_config: Dict[str, Any], built: BuiltModel,
     np.savez(os.path.join(path, "params.npz"), **to_flat_numpy(built.params))
 
 
+def load_model_config(path: str) -> Dict[str, Any]:
+    """The models of a YAML config file (a tier file, ``configs/*.yaml``):
+    its ``models:`` entry, or the whole file where it has none."""
+    import yaml  # only the package files need it
+
+    with open(path) as f:
+        doc = yaml.safe_load(f)
+    return doc["models"] if "models" in doc else doc
+
+
 def load_package(path: str) -> Tuple[InferenceModel, Dict[str, Any]]:
     """Load a package: returns ``(InferenceModel, params)``."""
     import yaml  # only the package files need it

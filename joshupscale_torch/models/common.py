@@ -57,24 +57,27 @@ class Mutables:
 
     ``fade_offset``: how many generator calls preceded this one in the
     step (the reference's FadeInLayer adds 1 to its counter per call).
+    ``reducer``: the mesh whose global batch the batch statistics span
+    (``nn.layers.batch_norm_train``); None for this process's batch.
     """
 
     def __init__(self, training: bool = False, prefix: str = "",
-                 updates=None, fade_offset: int = 0):
+                 updates=None, fade_offset: int = 0, reducer=None):
         self.training = training
         self.prefix = prefix
         self.updates = {} if updates is None else updates
         self.fade_offset = fade_offset
+        self.reducer = reducer
 
     def scoped(self, prefix: str) -> "Mutables":
         """A view over the same updates under ``prefix.``."""
         return Mutables(self.training, f"{self.prefix}{prefix}.",
-                        self.updates, self.fade_offset)
+                        self.updates, self.fade_offset, self.reducer)
 
     def bn(self, params, path: str, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return batch_norm(params, x)
-        y, upd = batch_norm_train(params, x)
+        y, upd = batch_norm_train(params, x, reducer=self.reducer)
         self.updates[self.prefix + path] = upd
         return y
 

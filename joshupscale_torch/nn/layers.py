@@ -301,7 +301,8 @@ def batch_norm(params, x: torch.Tensor, eps: float = BN_EPS) -> torch.Tensor:
     return x * inv.to(x.dtype) + offset.to(x.dtype)
 
 
-def batch_norm_train(params, x: torch.Tensor, eps: float = BN_EPS):
+def batch_norm_train(params, x: torch.Tensor, eps: float = BN_EPS,
+                     reducer=None):
     """Training batch norm (Keras semantics): ``(y, new_stats)``.
 
     The batch mean and the population variance are taken in float32
@@ -310,9 +311,20 @@ def batch_norm_train(params, x: torch.Tensor, eps: float = BN_EPS):
     ``x.dtype``, as the reference's is.  ``new_stats`` holds the moving
     statistics after one momentum step (``BN_MOMENTUM``), detached: they
     are state, not part of the loss.
+
+    ``reducer`` (a ``parallel.mesh.Mesh``: ``sum``, differentiable, and
+    ``world_size``) makes the batch the global one of equal shards: the
+    mean is the summed sums over the global count, the variance a second
+    pass around that mean, summed the same way.
     """
     dims = tuple(range(x.ndim - 1))
-    var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+    if reducer is None:
+        var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+    else:
+        xf = x.float()
+        count = xf.numel() // xf.shape[-1] * reducer.world_size
+        mean = reducer.sum(xf.sum(dims)) / count
+        var = reducer.sum(torch.square(xf - mean).sum(dims)) / count
     inv = (params["gamma"] * torch.rsqrt(var + eps)).to(x.dtype)
     y = (x - mean.to(x.dtype)) * inv + params["beta"].to(x.dtype)
     m = BN_MOMENTUM

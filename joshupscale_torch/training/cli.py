@@ -18,10 +18,17 @@ processes (``data/mploader.py``).  Runs on the CUDA device unless
 ``--cpu``.  With TensorBoard on, ``train.profile`` (default true)
 traces global steps 5..10 into ``<log_dir>/profile``, beside
 ``<log_dir>/tb``, as the reference does (``fit``'s profiler window).
-Not ported yet: the data-parallel mesh (``--num-devices`` > 1 raises,
-ROADMAP 14d).
 
-Usage: ``python -m joshupscale_torch.training.cli -c config.yaml [--cpu]``
+``--num-devices N`` trains data-parallel on N ranks (``parallel.mesh``:
+one process per device, the global batch ``train.batch_size`` split
+between them, the step the one-process step on the global batch); the
+default is every visible CUDA device, as the reference's mesh spans
+every device, and 1 with ``--cpu``.  ``--cpu --num-devices N`` runs N
+ranks on the CPU (gloo).  Rank 0 writes the checkpoints, the logs, the
+play strips and the export.
+
+Usage: ``python -m joshupscale_torch.training.cli -c config.yaml [--cpu]
+[--num-devices N]``
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from joshupscale_torch import resolve_device
 from joshupscale_torch.export.package import save_package
 from joshupscale_torch.export.weights import to_flat_numpy
 from joshupscale_torch.models.registry import BuiltModel, create_models
+from joshupscale_torch.parallel.mesh import launch, mesh_devices, replicate
 from joshupscale_torch.training.play import PLAY_FRAMES, PlayCallback
 from joshupscale_torch.training.trainer import (
     Adam,
@@ -50,6 +58,7 @@ from joshupscale_torch.training.trainer import (
     init_train_state,
     load_checkpoint,
     make_optimizer,
+    step_noise,
     to_device,
 )
 
@@ -63,7 +72,8 @@ def parse_args(argv=None):
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU instead of the CUDA device")
     parser.add_argument("--num-devices", type=int, default=None,
-                        help="data-parallel devices (1 only, for now)")
+                        help="data-parallel ranks (default: every CUDA "
+                             "device; 1 with --cpu)")
     return parser.parse_args(argv)
 
 
@@ -106,10 +116,13 @@ def _mask(params, frozen_paths, trainable):
 
 
 def build_training(config: Dict[str, Any], seed: int = 0,
-                   device=None) -> TrainingSetup:
+                   device=None, mesh=None) -> TrainingSetup:
     """Models, optimizer(s), step, state and ``val_fn`` for a config's
-    trainer entry (``train.model``, or the one trainer)."""
-    dev = resolve_device(device)
+    trainer entry (``train.model``, or the one trainer).  With ``mesh``
+    (inside a rank), on the rank's device: the step is the mesh's, the
+    state rank 0's (``replicate``) and ``val_fn`` draws the global
+    batch's noise."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     train_cfg = dict(config.get("train", {}))
     models = create_models(config["models"], seed=seed)
     name = train_cfg.get("model")
@@ -145,7 +158,7 @@ def build_training(config: Dict[str, Any], seed: int = 0,
         step = build_gan_step(trainer, optimizer, discr_optimizer,
                               vgg_params, gen_mask=gen_mask,
                               discr_mask=discr_mask, l2_reg=l2_reg,
-                              steps_per_execution=spe)
+                              mesh=mesh, steps_per_execution=spe)
         state = init_gan_state(trainer, built.params["gen"],
                                built.params["discr"], optimizer,
                                discr_optimizer, dev)
@@ -153,7 +166,8 @@ def build_training(config: Dict[str, Any], seed: int = 0,
         def val_fn(st, batch, rng: torch.Generator):
             # Inference batch norm (the reference's test_step).
             with torch.no_grad():
-                noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+                noise = step_noise(trainer, mesh, batch["input"].shape,
+                                   rng, dev)
                 y = trainer.forward(st.gen_params, st.discr_params,
                                     vgg_params,
                                     batch["input"], batch["target"], noise,
@@ -167,19 +181,22 @@ def build_training(config: Dict[str, Any], seed: int = 0,
         step = build_frvsr_step(
             trainer, optimizer,
             mask=_mask(built.params, built.frozen_paths, built.trainable),
-            l2_reg=l2_reg, steps_per_execution=spe)
+            l2_reg=l2_reg, mesh=mesh, steps_per_execution=spe)
         state = init_train_state(built.params, optimizer, dev)
 
         def val_fn(st, batch, rng: torch.Generator):
             # Inference batch norm (the reference's test_step).
             with torch.no_grad():
-                noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+                noise = step_noise(trainer, mesh, batch["input"].shape,
+                                   rng, dev)
                 _, aux = trainer.loss(st.params, batch, noise,
                                       training=False)
             return aux["metrics"]
 
         monitor = train_cfg.get("monitor", "loss")
 
+    if mesh is not None:
+        state = type(state)(**replicate(mesh, state.tree()))
     return TrainingSetup(models=models, built=built, optimizer=optimizer,
                          step=step, state=state, val_fn=val_fn,
                          monitor=monitor, device=dev,
@@ -188,17 +205,36 @@ def build_training(config: Dict[str, Any], seed: int = 0,
 
 def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
           device=None) -> int:
-    """Build, fit on the config's datasets, export; returns 0."""
+    """Build, fit on the config's datasets, export; returns 0.
+
+    ``num_devices`` ranks train data-parallel: CUDA devices 0..N-1 (more
+    than exist raises), or N CPU ranks for ``device="cpu"``.  The
+    default is every visible CUDA device where ``device`` is None (the
+    CLI without ``--cpu``), else 1 on ``device``."""
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    n = num_devices
+    if n is None:
+        n = max(torch.cuda.device_count(), 1) if device is None else 1
+    if n == 1:
+        return _train(config, seed, device)
+    devices = ["cpu"] * n if on_cpu else mesh_devices(n)
+    print(f"data-parallel mesh over {n} devices")
+    return launch(_train_rank, n, config, seed, devices=devices)
+
+
+def _train_rank(mesh, config: Dict[str, Any], seed: int) -> int:
+    return _train(config, seed, mesh.device, mesh)
+
+
+def _train(config: Dict[str, Any], seed: int, device, mesh=None) -> int:
+    """``train`` in one process, or in one rank of ``mesh``."""
     from joshupscale_torch.data import (
         create_train_dataset,
         create_val_dataset,
     )
 
-    if num_devices is not None and num_devices > 1:
-        raise NotImplementedError(
-            "--num-devices > 1 needs the data-parallel mesh, which is not "
-            "ported yet (ROADMAP 14d)")
-    setup = build_training(config, seed, device)
+    lead = mesh is None or mesh.rank == 0
+    setup = build_training(config, seed, device, mesh)
     train_cfg = dict(config.get("train", {}))
     batch_size = int(train_cfg.get("batch_size", 4))
     ckpt_dir = train_cfg.get("checkpoint_dir", "checkpoints")
@@ -215,12 +251,12 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
             config["val_dataset"], batch_size,
             play_size=int(train_cfg.get("play_size", 4)),
             val_size=int(train_cfg.get("val_size", 16)), seed=seed)
-        if next(iter(val_ds), None) is None:
+        if next(iter(val_ds), None) is None and lead:
             print("WARNING: val dataset yielded no full batches "
                   "(val_size/batch_size exceed the available "
                   "sequences?); validation metrics will be absent")
         inference = setup.built.config.get("inference")
-        if inference is not None and inference.obj is not None:
+        if lead and inference is not None and inference.obj is not None:
             play_batch = next(iter(play_ds), None)
             if play_batch is None:
                 raise ValueError(
@@ -243,7 +279,8 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
     resume = train_cfg.get("resume")
     if resume:
         state = type(state)(**load_checkpoint(resume, state.tree()))
-        print(f"resumed from {resume}")
+        if lead:
+            print(f"resumed from {resume}")
 
     # Closed after the fit: a multiprocess loader's workers stop and
     # their shared-memory segments are unlinked.
@@ -268,7 +305,7 @@ def train(config: Dict[str, Any], seed: int = 0, num_devices=None,
         train_iter.close()
 
     export_cfg = config.get("export")
-    if export_cfg:
+    if export_cfg and lead:
         _export(export_cfg, config, setup.models, setup.built, state)
     return 0
 

@@ -108,14 +108,15 @@ def route_warp(use_s2d: bool, image: torch.Tensor,
 def run_recurrence(generator_apply, gen_params, first_out: torch.Tensor,
                    frames: torch.Tensor, flow_t: torch.Tensor,
                    bright_diff: Optional[torch.Tensor], warp,
-                   training: bool, remat: bool):
+                   training: bool, remat: bool, reducer=None):
     """The generator's recurrence after its first call (the reference's
     scan): step i warps the previous output (plus ``bright_diff[:, i]``)
     by ``flow_t[:, i]`` (``warp(image, flow)``) and runs the generator
     on ``frames[:, i]`` with a ``Mutables`` whose fade offset is i + 1.
     With ``remat`` (and grad enabled) each step runs under
     ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of
-    its scan body).  Returns the outputs (the first included), the
+    its scan body).  ``reducer``: the mesh of the batch statistics
+    (``Mutables``).  Returns the outputs (the first included), the
     warped inputs and each step's BN updates."""
 
     def make_step(call_idx):
@@ -124,7 +125,8 @@ def run_recurrence(generator_apply, gen_params, first_out: torch.Tensor,
                 last_output = last_output + bd
             warped = warp(last_output, flow)
             mut = Mutables(training,
-                           fade_offset=call_idx if training else 0)
+                           fade_offset=call_idx if training else 0,
+                           reducer=reducer)
             out = generator_apply(gen_params, frame, warped, mut)
             return out, warped, mut.updates
 
@@ -184,11 +186,14 @@ class FRVSRTrainer:
                                     generator, device)
 
     def forward(self, params, inputs: torch.Tensor, targets: torch.Tensor,
-                noise: Noise, training: bool = True) -> Dict[str, Any]:
+                noise: Noise, training: bool = True,
+                reducer=None) -> Dict[str, Any]:
         """The unrolled recurrent forward.
 
         inputs (B, T, H, W, 3), targets (B, T, 4H, 4W, 3), u8 or floats
-        in [-0.5, 0.5]; ``noise`` from ``draw_noise``.  Returns
+        in [-0.5, 0.5]; ``noise`` from ``draw_noise``; ``reducer``: the
+        mesh whose global batch the batch statistics span (None: this
+        batch).  Returns
         ``gen_outputs`` (B, T, ...), ``target_warp`` (B, T-1, ...),
         ``gen_warp``, ``flow`` and ``bn_updates`` (the flow net's, and
         the generator's averaged over the recurrence's steps).
@@ -197,7 +202,7 @@ class FRVSRTrainer:
         inputs = preprocess_batch(inputs).to(cdt)
         targets = preprocess_batch(targets)
         b, t, h, w, _ = inputs.shape
-        mut = Mutables(training)
+        mut = Mutables(training, reducer=reducer)
 
         if self.normalize_brightness:
             bright = sequence_brightness(inputs)
@@ -227,7 +232,8 @@ class FRVSRTrainer:
                                     first_warp, mut.scoped("generator"))
         outs, warps, step_updates = run_recurrence(
             self.generator_apply, params["generator"], last, inputs[:, 1:],
-            flow_t, bright_diff, self._scan_warp, training, self.remat)
+            flow_t, bright_diff, self._scan_warp, training, self.remat,
+            reducer)
         if training and t > 1:
             merge_scan_bn_updates(mut, "generator.", step_updates)
         return {
@@ -239,13 +245,14 @@ class FRVSRTrainer:
         }
 
     def loss(self, params, batch: Dict[str, torch.Tensor], noise: Noise,
-             l2_reg: float = 0.0, training: bool = True
+             l2_reg: float = 0.0, training: bool = True, reducer=None
              ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Content L2 + warp L2 (+ l2 penalty); ``training=False`` runs
-        inference batch norm, the validation route."""
+        inference batch norm, the validation route; ``reducer`` as in
+        ``forward``."""
         targets = preprocess_batch(batch["target"])
         y = self.forward(params, batch["input"], targets, noise,
-                         training=training)
+                         training=training, reducer=reducer)
         gen_outputs_loss = losses.channel_sum_mse(y["gen_outputs"], targets)
         target_warp_loss = losses.channel_sum_mse(y["target_warp"],
                                                   targets[:, 1:])
@@ -276,7 +283,8 @@ class FRVSRSingleTrainer:
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
              noise: Optional[Noise] = None, l2_reg: float = 0.0,
-             training: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+             training: bool = True,
+             reducer=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
         window = preprocess_batch(batch["input"])
         num_frames = window.shape[1]
         state = {
@@ -284,7 +292,7 @@ class FRVSRSingleTrainer:
             "last_frames": [window[:, i] for i in range(num_frames - 1)],
         }
         target = preprocess_batch(batch["target"])
-        mut = Mutables(training)
+        mut = Mutables(training, reducer=reducer)
         outputs, _ = self.model.apply_train(params, window[:, -1], state,
                                             mut)
         gen_outputs_loss = losses.channel_sum_mse(outputs["output_raw"],

@@ -124,7 +124,7 @@ class GANTrainer:
 
     def forward(self, gen_params, discr_params, vgg_params,
                 inputs: torch.Tensor, targets: torch.Tensor, noise: Noise,
-                training: bool = True) -> Dict[str, Any]:
+                training: bool = True, reducer=None) -> Dict[str, Any]:
         """The ping-pong forward: what the losses need, the debug taps
         (``flow_t``, ``t_vel``, the discriminator inputs and their warps)
         and ``bn_updates`` (the flow net's, the generator's -- the first
@@ -132,14 +132,16 @@ class GANTrainer:
         discriminator's, real then fake).
 
         inputs (B, 10, H, W, 3), targets (B, 10, 4H, 4W, 3), u8 or floats
-        in [-0.5, 0.5]; ``noise`` from ``draw_noise``.
+        in [-0.5, 0.5]; ``noise`` from ``draw_noise``; ``reducer``: the
+        mesh whose global batch every batch norm's statistics span (None:
+        this batch).
         """
         cdt = self.compute_dtype
         inputs = preprocess_batch(inputs).to(cdt)
         targets = preprocess_batch(targets)
         b, t, h, w, _ = inputs.shape
         td = 2 * t - 1
-        mut = Mutables(training)
+        mut = Mutables(training, reducer=reducer)
 
         inputs_d = pingpong(inputs)
         targets_d = pingpong(targets)
@@ -173,7 +175,7 @@ class GANTrainer:
         outs, warps, step_updates = run_recurrence(
             self.generator_apply, gen_params["generator"], first_out,
             inputs_d[:, 1:], flow_t, bright_diff, self._scan_warp, training,
-            self.remat)
+            self.remat, reducer)
         if training:
             merge_scan_bn_updates(mut, "gen.generator.", step_updates)
         gen_outputs = torch.stack(outs, dim=1)

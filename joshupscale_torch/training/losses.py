@@ -8,6 +8,23 @@ library calls: the sigmoid cross-entropy is ``max(x, 0) + log1p(exp(-
 VGG loss normalizes as ``x * rsqrt(max(sum(x^2), 1e-7))``, the epsilon
 clamping the squared norm (``F.normalize`` clamps the norm, about 3x
 apart on near-zero rows).
+
+Under the data-parallel mesh (``parallel.mesh``: equal shards of the
+global batch), the ranks' mean loss is the global batch's loss, and so
+the all-reduced mean of the ranks' gradients is its gradient, because
+every term is one of two kinds:
+- a mean over per-sample quantities, each sample counted alike:
+  ``channel_sum_mse`` (a mean over batch, time and pixels), the
+  sigmoid cross-entropy terms (``adversarial_loss``,
+  ``discr_fake_loss``, ``discr_real_loss``: means over the logits),
+  ``feature_matching_loss`` and ``vgg_cosine_loss`` (means per layer,
+  weighted by constants) and ``ping_pong_loss`` (a sum over the batch
+  divided by a count that grows with the batch);
+- a param-only term, ``l2_regularization``: the same on every rank,
+  so the mean counts it once.
+The GAN's gate on the adversarial term reads the EMAs, which every
+rank holds alike.  Batch norm, the one coupling between samples, takes
+its moments over the global batch (``nn.layers.batch_norm_train``).
 """
 
 from __future__ import annotations

@@ -20,8 +20,24 @@ here, so a gate on the device would need a device count).
 Checkpoints are flat ``.npz`` files in the reference's layouts and
 under its keys (params, Adam's count and moments as optax's state
 flattens them, the GAN's EMAs, the step), so a checkpoint either
-package writes resumes in the other.  The data-parallel mesh is not
-ported (ROADMAP 14d): a step runs on one device.
+package writes resumes in the other.
+
+With a mesh (``parallel.mesh``, one rank per shard), a step is the
+one-process step on the global batch, as the reference's GSPMD step is.
+Each rank holds an equal slice of the batch and a replica of the state:
+- Every loss term is a mean over per-sample quantities or a param-only
+  term (``losses``' module docstring), so with equal shards the global
+  loss is the ranks' mean loss, and its gradient the all-reduced mean
+  of the ranks' gradients (the l2 term counted once).
+- Batch norm takes its moments over the global batch (``Mesh.sum``,
+  whose backward pass sums the gradient over the ranks too), so the
+  moving statistics come out the same on every rank.
+- The noise is drawn for the global batch from the same generator on
+  every rank and sliced (``step_noise``).
+- The metrics, and from them the GAN's gate and EMAs, are all-reduced
+  means.
+Adam then runs on identical gradients, and the replicas stay
+bit-identical.
 """
 
 from __future__ import annotations
@@ -40,6 +56,11 @@ import numpy as np
 import torch
 
 from joshupscale_torch.export.weights import from_flat_numpy, to_flat_numpy
+from joshupscale_torch.parallel.mesh import (
+    batch_spec,
+    local_batch,
+    shard_batch,
+)
 from joshupscale_torch.training.frvsr import preprocess_batch
 from joshupscale_torch.training.losses import trainable_leaves
 from joshupscale_torch.training.schedules import get_learning_rate
@@ -285,13 +306,14 @@ def exact_float32(enabled: bool = True):
 
 
 def loss_and_grads(trainer, params, batch, noise, l2_reg: float = 0.0,
-                   mask=None):
+                   mask=None, reducer=None):
     """The forward and backward passes of one step: ``(loss, aux,
     grads)``, ``grads`` by dotted path for every trainable leaf the mask
     (``freeze_mask``) leaves free.  A frozen leaf gets no gradient, so
     Adam leaves it and its zero moments alone: what the reference's
-    zeroed gradients do from the first step."""
-    loss, aux = trainer.loss(params, batch, noise, l2_reg)
+    zeroed gradients do from the first step.  ``reducer``: the mesh of
+    the batch statistics (this rank's gradients, not yet reduced)."""
+    loss, aux = trainer.loss(params, batch, noise, l2_reg, reducer=reducer)
     return loss, aux, gradients(loss, grad_leaves(params, mask))
 
 
@@ -325,8 +347,27 @@ def apply_gradients(optimizer: Adam, state: TrainState, grads,
     state.step += 1
 
 
+def step_noise(trainer, mesh, input_shape, rng: torch.Generator, device,
+               noise=None):
+    """A step's random inputs for a batch of ``input_shape``:
+    ``noise`` if given, else ``trainer.draw_noise`` from ``rng``.  With
+    a mesh, ``input_shape`` is this rank's and the noise is the global
+    batch's (given, or drawn at the global shape from a generator every
+    rank seeds alike), sliced to this rank's part on its device: every
+    rank sees the one-process step's noise."""
+    if mesh is None:
+        if noise is None:
+            noise = trainer.draw_noise(input_shape, rng, device)
+        return noise
+    if noise is None:
+        shape = ((input_shape[0] * mesh.world_size,)
+                 + tuple(input_shape[1:]))
+        noise = trainer.draw_noise(shape, rng, device)
+    return shard_batch(mesh, noise)
+
+
 def build_frvsr_step(trainer, optimizer: Adam, mask=None,
-                     l2_reg: float = 0.0,
+                     l2_reg: float = 0.0, mesh=None,
                      steps_per_execution: int = 1) -> Callable:
     """The FRVSR (or single-step) train step: ``run(state, batch, rng=None,
     noise=None) -> (state, metrics)``, updating ``state`` in place.
@@ -338,16 +379,23 @@ def build_frvsr_step(trainer, optimizer: Adam, mask=None,
     and averages their metrics, as the reference's scan does.  With a
     float32 compute dtype the step runs without TF32
     (``exact_float32``).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the step of one rank, on its
+    slice of the global batch (``shard_batch`` along ``batch_spec(mesh,
+    K)``) and a replicated state; ``noise``, where given, is the global
+    batch's (the module docstring has the rules).
     """
     k = int(steps_per_execution)
     exact = _compute_dtype(trainer) == torch.float32
 
     def one(state, batch, rng, noise):
-        if noise is None:
-            noise = trainer.draw_noise(batch["input"].shape, rng,
-                                       batch["input"].device)
+        noise = step_noise(trainer, mesh, batch["input"].shape, rng,
+                           batch["input"].device, noise)
         _, aux, grads = loss_and_grads(trainer, state.params, batch,
-                                       noise, l2_reg, mask)
+                                       noise, l2_reg, mask, mesh)
+        if mesh is not None:
+            grads, metrics = mesh.mean(grads, aux["metrics"])
+            aux = dict(aux, metrics=metrics)
         apply_gradients(optimizer, state, grads, aux)
         return {n: v.detach() for n, v in aux["metrics"].items()}
 
@@ -365,16 +413,18 @@ def build_frvsr_step(trainer, optimizer: Adam, mask=None,
 
     run.steps_per_execution = k
     run.exact_float32 = exact
+    run.mesh = mesh
     return run
 
 
 def gan_losses(trainer, state: GANTrainState, batch, noise, vgg_params,
-               l2_reg: float = 0.0):
+               l2_reg: float = 0.0, reducer=None):
     """The GAN step's forward pass: ``(terms, bn_updates)``, ``terms``
-    from ``trainer.compute_losses`` against the state's EMAs."""
+    from ``trainer.compute_losses`` against the state's EMAs;
+    ``reducer``: the mesh of the batch statistics."""
     y = trainer.forward(state.gen_params, state.discr_params, vgg_params,
                         batch["input"], batch["target"], noise,
-                        training=True)
+                        training=True, reducer=reducer)
     terms = trainer.compute_losses(y, state.ema, state.gen_params,
                                    state.discr_params, l2_reg)
     return terms, y["bn_updates"]
@@ -433,7 +483,7 @@ _CUMULATIVE = ("discr_steps", "t_balance1_avg", "t_balance2_avg")
 
 def build_gan_step(trainer, gen_optimizer: Adam, discr_optimizer: Adam,
                    vgg_params, gen_mask=None, discr_mask=None,
-                   l2_reg: float = 0.0,
+                   l2_reg: float = 0.0, mesh=None,
                    steps_per_execution: int = 1) -> Callable:
     """The GAN train step: ``run(state, batch, rng=None, noise=None) ->
     (state, metrics)``, updating the ``GANTrainState`` in place (see
@@ -444,7 +494,9 @@ def build_gan_step(trainer, gen_optimizer: Adam, discr_optimizer: Adam,
     with K > 1 the losses are averaged over the K steps and
     ``discr_steps``, ``t_balance1_avg`` and ``t_balance2_avg`` are the
     last step's.  With a float32 compute dtype the step runs without
-    TF32 (``exact_float32``).
+    TF32 (``exact_float32``).  ``mesh`` as in ``build_frvsr_step``: the
+    loss terms are all-reduced means before the EMAs and the gate read
+    them, so every rank takes the same decision.
     """
     threshold = trainer.config()["t_balance1_threshold"]
     k = int(steps_per_execution)
@@ -455,12 +507,15 @@ def build_gan_step(trainer, gen_optimizer: Adam, discr_optimizer: Adam,
         dev = batch["input"].device
         if dev not in vgg_on:
             vgg_on[dev] = to_device(vgg_params, dev)
-        if noise is None:
-            noise = trainer.draw_noise(batch["input"].shape, rng, dev)
+        noise = step_noise(trainer, mesh, batch["input"].shape, rng, dev,
+                           noise)
         terms, bn_updates = gan_losses(trainer, state, batch, noise,
-                                       vgg_on[dev], l2_reg)
+                                       vgg_on[dev], l2_reg, mesh)
         gen_grads, discr_grads = gan_gradients(terms, state, gen_mask,
                                                discr_mask)
+        if mesh is not None:
+            gen_grads, discr_grads, terms = mesh.mean(gen_grads,
+                                                      discr_grads, terms)
         apply_gan_gradients(trainer, gen_optimizer, discr_optimizer, state,
                             gen_grads, discr_grads, terms, bn_updates,
                             threshold)
@@ -485,6 +540,7 @@ def build_gan_step(trainer, gen_optimizer: Adam, discr_optimizer: Adam,
 
     run.steps_per_execution = k
     run.exact_float32 = exact
+    run.mesh = mesh
     return run
 
 
@@ -803,9 +859,21 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
     TensorBoard's profile plugin reads it (``*.pt.trace.json``), also
     when ``fit`` raises inside the window (the reference's window, whose
     trace re-opens every other step after it, runs once here).
+
+    A step built with a mesh (``step_fn.mesh``) runs on every rank:
+    each rank reads the same global batches (``train_data`` and
+    ``val_data`` alike, and ``rng`` seeded alike) and stages its slice
+    (``local_batch``); the validation metrics are all-reduced means;
+    only rank 0 logs, writes checkpoints and TensorBoard, runs
+    ``epoch_callback`` and traces the profiler window.
     Returns ``(state, history)``.
     """
     device = rng.device
+    mesh = getattr(step_fn, "mesh", None)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log_fn, tensorboard_dir, profile_dir = (lambda m: None), None, None
+        checkpoint_dir = epoch_callback = None
     history = []
     best = float("inf")
     stale = 0
@@ -816,6 +884,11 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
     spe = getattr(step_fn, "steps_per_execution", 1)
     exact = getattr(step_fn, "exact_float32", False)
     window = _ProfileWindow(profile_dir, profile_batch, device)
+
+    def local(batch, k=1):
+        return (batch if mesh is None
+                else local_batch(mesh, batch, batch_spec(mesh, k)))
+
     if spe > 1 and steps_per_epoch % spe:
         log_fn(f"steps_per_epoch={steps_per_epoch} is not a multiple of "
                f"steps_per_execution={spe}; running "
@@ -837,10 +910,10 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
         while True:
             if spe > 1:
                 group = [next_batch() for _ in range(spe)]
-                yield {k: np.stack([g[k] for g in group])
-                       for k in group[0]}
+                yield local({k: np.stack([g[k] for g in group])
+                             for k in group[0]}, spe)
             else:
-                yield next_batch()
+                yield local(next_batch())
 
     if stage_inputs:
         batch_iter: Iterator = _InputStager(host_batches(), device)
@@ -873,15 +946,18 @@ def fit(step_fn: Callable, state, train_data: Iterable[Dict[str,
                      **{f"train_{k}": v for k, v in train_metrics.items()}}
             if val_fn is not None and val_data is not None:
                 vacc = MeanAccumulator()
-                batches = val_cache or (device_normalize(b, device)
+                batches = val_cache or (device_normalize(local(b), device)
                                         for b in val_data)
                 with exact_float32(exact):
                     for val_i, batch in enumerate(batches):
                         if cache_val_on_device and len(val_cache) <= val_i:
                             val_cache.append(batch)
                         gen = torch.Generator(device).manual_seed(val_i)
-                        vacc.update({k: v.item() for k, v in
-                                     val_fn(state, batch, gen).items()})
+                        metrics = val_fn(state, batch, gen)
+                        if mesh is not None:
+                            (metrics,) = mesh.mean(metrics)
+                        vacc.update({k: v.item()
+                                     for k, v in metrics.items()})
                 entry.update({f"val_{k}": v
                               for k, v in vacc.result().items()})
 

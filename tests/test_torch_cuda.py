@@ -926,3 +926,32 @@ def test_spatial_engine_across_card_and_cpu(gen, cuda, arch):
         assert got.shape == want.shape
         assert np.abs(got.astype(np.int32)
                       - want.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.parametrize("trainer", ["frvsr", "gan"])
+def test_mesh_step_on_shared_card_matches_one_process(cuda, trainer):
+    """2 gloo ranks on ``cuda:0`` (``parallel.mesh``) against the
+    one-process card step on the same global batch 4 and noise, 2 steps
+    at 16 filters: FRVSR's all-reduced gradients within 1e-4 relative L2
+    of the one-process gradients at the ranks' params
+    (``replay_grads``), its loss within 1e-5 relative; the GAN's gate
+    decisions equal and gen_loss within 2e-3; the ranks' params bit for
+    bit."""
+    from joshupscale_torch.parallel.mesh import launch
+    from joshupscale_torch.tools import mesh_parity as mp
+
+    gan = trainer == "gan"
+    run = mp.make_run(mp.frvsr_models((16, 1), (16, 1), gan=gan,
+                                      lr=1e-5 if gan else 5e-4),
+                      trainer, 4, 10 if gan else 4, 8, 2)
+    one = mp.run_steps(None, run, cuda)
+    meshed = launch(mp.run_steps, 2, run, devices=["cuda:0", "cuda:0"])
+    replay = None if gan else mp.replay_grads(run, meshed["update_params"],
+                                              cuda)
+    res = mp.compare(one, meshed, replay)
+    assert res["ranks_identical"], res
+    if gan:
+        assert res["gates"][0] == res["gates"][1], res
+        assert res["loss_rel"] <= 2e-3, res
+    else:
+        assert res["grad_rel"] <= 1e-4 and res["loss_rel"] <= 1e-5, res

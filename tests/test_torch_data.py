@@ -99,7 +99,7 @@ def test_training_cli_trains_checkpoints_and_exports(tmp_path):
     validation) on the CPU: finite losses in the history, best and
     latest checkpoints that load back, and an exported package that the
     reference's ``load_package`` and the port's ``create_runtime`` both
-    serve; ``--num-devices 2`` raises; with ``data_workers: 2`` and
+    serve; more CUDA devices than exist raise; with ``data_workers: 2`` and
     ``export.onnx`` / ``onnx_fp16`` the ONNX files are the reference
     exporter's."""
     import yaml
@@ -136,8 +136,12 @@ def test_training_cli_trains_checkpoints_and_exports(tmp_path):
             w["generator.conv_1.kernel"],
             to_flat_numpy(restored["params"])["generator.conv_1.kernel"])
 
-    with pytest.raises(NotImplementedError, match="14d"):
-        cli.train(config, num_devices=2, device="cpu")
+    # --num-devices above 1 trains on a mesh of ranks
+    # (tests/test_torch_mesh.py); more CUDA devices than exist raise.
+    import torch
+
+    with pytest.raises(ValueError, match="CUDA devices asked for"):
+        cli.train(config, num_devices=torch.cuda.device_count() + 2)
 
     # The ONNX door, with the data in two worker processes: model.onnx
     # and model_fp16.onnx are the JAX exporter's files for the exported
