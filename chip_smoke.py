@@ -77,12 +77,21 @@ GAN step the same way (the same gate decision), the ranks' all-reduce
 count and gloo's all-reduce time, and rank 0's params served as a
 package (68 K1 + 1 K2 a step, frames against the one-process params'
 package).  The native phase (``phase_native``) follows: the C++ host
-over the port (``joshupscale_torch/native``) built, the quality tier
-exported at full width to an AOTInductor ``step.pt2`` (68 K1 + 1 K2 in
-its trace, by kernel name) and served through ``upscale_cli`` with the
-embedded-Python backend (bit for bit with ``Engine.process``) and the
-Python-free one (within the card-vs-CPU gate), each synchronous and
-pipelined, with ms a frame.  Then it
+over the port (``joshupscale_torch/native``) built; the OBS model set
+written by ``python -m joshupscale_torch.tools.make_model_set`` at full
+width with each tier's ``step.pt2`` compiled on the card (two processes
+side by side, each exporting two tiers in turn; ``model_psp_fast`` from
+a ``--weights`` npz whose flow head makes 4 px flows); each tier's
+artifact counted in its trace (68 / 36 / 48 / 24 K1 + 1 K2 by kernel
+name), its frames and float state held to ``Engine``'s, and served
+through ``upscale_cli`` with the Python-free backend within the
+card-vs-CPU gate; the fake OBS host over the set (the psp -> ps2 swap,
+the masked HUD compose, a missing model and the recovery) against
+``Engine``; the host installed (``cmake --install``) and its
+``upscale_cli`` run with the build trees moved away; and on the quality
+tier the embedded-Python backend (bit for bit with ``Engine.process``)
+and the Python-free one, each synchronous and pipelined, with ms a
+frame.  Then it
 drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
 which holds P1 and P2 against their plain versions at full shape (all
 five variants) and times them; checks that it went through P1 and P2;
@@ -2174,30 +2183,36 @@ def phase_mesh(torch, seed, device, out_dir):
     return res
 
 
-NATIVE_CHECKED = 20  # upscale_cli frames held against Engine.process
+NATIVE_CHECKED = 20  # frames of each tier held against Engine.process
 # Frames of the two upscale_cli runs a frame's time is the difference
 # quotient of: each process's first frames warm up (lazy kernel loads,
 # library plans) by an amount that varies between processes, and the
 # difference of two warm-ups is divided by the 300 frames between them.
 NATIVE_RUNS = (NATIVE_CHECKED, 320)
-# The flow check: the quality tier's widths at full frame, depth cut to
-# 2 + 2 res blocks (a short compile), random undamped weights with the
-# flow head scaled to a mean |flow| of NATIVE_FLOW HR pixels (one LR
-# pixel), so that a wrong flow net inside the artifact shows in its
-# frames and state.
-NATIVE_FLOW_BLOCKS = 2
+# The OBS model set (joshupscale_torch.tools.make_model_set): each tier's
+# K1 launches a frame (and 1 K2).  Two make_model_set processes write it
+# side by side, each exporting its two tiers one after the other.
+NATIVE_TIERS = {"model_psp": K1_PER_FRAME, "model_psp_fast": 2 * (6 + 12),
+                "model_ps2": 2 * 24, "model_ps2_fast": 2 * 12}
+NATIVE_SET_PROCESSES = (("model_psp_fast", "model_psp"),
+                        ("model_ps2_fast", "model_ps2"))
+# model_psp_fast's flow head is scaled to a mean |flow| of NATIVE_FLOW HR
+# pixels (one LR pixel), so that a wrong flow net inside its artifact
+# (the traced-conv fault showed at its 32 / 48 widths) shows in its frames
+# and state.
 NATIVE_FLOW_FRAMES = 6
 NATIVE_FLOW = 4.0
 NATIVE_MIN_FLOW = 2.0
 
 
-def native_cli(host, package, frames_path, n, aoti, pipeline, keep=True):
-    """One ``upscale_cli`` run over the port on ``n`` frames: (its output
-    frames, or None unless ``keep`` (then they go to /dev/null), the
-    seconds of its frame loop as the CLI times it: the ``processImage``
-    / ``processImageAsync`` calls and the drain, not process start,
-    model load or file writes).  A failed run raises with its error
-    output."""
+def native_cli(host, package, frames_path, n, aoti, pipeline, keep=True,
+               cli=None):
+    """One ``upscale_cli`` run over the port on ``n`` frames (``cli``: the
+    executable, by default the build tree's): (its output frames, or None
+    unless ``keep`` (then they go to /dev/null), the seconds of its frame
+    loop as the CLI times it: the ``processImage`` /
+    ``processImageAsync`` calls and the drain, not process start, model
+    load or file writes).  A failed run raises with its error output."""
     import re
     import subprocess
 
@@ -2209,7 +2224,7 @@ def native_cli(host, package, frames_path, n, aoti, pipeline, keep=True):
         env["JOSHUPSCALE_TORCH_AOTI"] = "1"
     with tempfile.TemporaryDirectory() as d:
         out_path = os.path.join(d, "out.raw") if keep else os.devnull
-        cmd = [os.path.join(host, "upscale_cli")] + (
+        cmd = [cli or os.path.join(host, "upscale_cli")] + (
             ["--pipeline"] if pipeline else []) + [
                 package, frames_path, out_path, str(n)]
         proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
@@ -2268,115 +2283,200 @@ def native_step_check(torch, name, step, engine, frames, device):
     return shown_max, kept, np.stack([b for _, b in shown])
 
 
-def native_flow_check(torch, seed, device, out_dir):
-    """The artifact's flow net on the card, with flows large enough to
-    show a fault: the quality tier's widths at full frame with
-    ``NATIVE_FLOW_BLOCKS`` res blocks in each net, the registry's random
-    weights, undamped, and the flow head (linear) scaled so that the mean
-    |flow| over the frames (eager, HR pixels) is ``NATIVE_FLOW`` (at
-    least ``NATIVE_MIN_FLOW`` after bf16 rounding).  Then
-    ``native_step_check`` holds the artifact's frames and state to
-    ``Engine``'s."""
-    from joshupscale_torch.export.package import load_aoti_step, save_package
+def tier_weights(torch, name, seed, device, path):
+    """The weights ``make_model_set --weights`` takes for tier ``name``,
+    written to ``path`` (a raw params ``.npz``): the registry's random
+    init from ``seed`` through ``seeded_params``; for ``model_psp_fast``
+    the flow head (linear) is then scaled so that the mean |flow| over
+    ``NATIVE_FLOW_FRAMES`` frames (eager, HR pixels) is ``NATIVE_FLOW``,
+    at least ``NATIVE_MIN_FLOW`` after bf16 rounding.  Returns that mean
+    |flow|, or None."""
+    from joshupscale_torch.export.package import load_model_config
+    from joshupscale_torch.export.weights import to_flat_numpy
     from joshupscale_torch.models.registry import create_models
-    from joshupscale_torch.runtime.engine import Engine
+    from joshupscale_torch.tools.export_isolation import scale_flow
+    from joshupscale_torch.tools.make_model_set import MODEL_CONFIGS
 
-    config = serving_config({"name": "flow-resnet", "num_inputs": 4,
-                             "num_filters": 64,
-                             "num_res_blocks": NATIVE_FLOW_BLOCKS}, 64,
-                            NATIVE_FLOW_BLOCKS)
+    config = load_model_config(os.path.join(HERE, MODEL_CONFIGS[name]))
     built = create_models(config, seed=seed)["inference"]
-    model = built.obj
-    frames = frames_for(NATIVE_FLOW_FRAMES, seed + 1)
+    params = seeded_params(torch, built, seed)
+    flow = None
+    if name == "model_psp_fast":
+        frames = frames_for(NATIVE_FLOW_FRAMES, seed + 1)
+        raw, flow = scale_flow(torch, built, frames, device, NATIVE_FLOW)
+        log(f"native {name}: mean |flow| {flow:.3f} HR pixels over frames "
+            f"2..{len(frames)} ({raw:.3f} before the head was scaled)")
+        if flow < NATIVE_MIN_FLOW:
+            raise AssertionError(f"native {name}: the flows are too small "
+                                 f"to test the artifact's flow net")
+    np.savez(path, **to_flat_numpy(params))
+    return flow
 
-    def mean_flow():
-        serving = model.prepare_params(built.params, device)
-        last = model.init_state(1, device=device)["last_frames"]
-        flows = []
-        with torch.no_grad():
-            for f in frames:
-                inter, st = model.apply_flow_stage(
-                    serving, torch.from_numpy(f[None]).to(device),
-                    {"last_frames": last})
-                last = st["last_frames"]
-                flows.append(float(inter["flow"].float().abs().mean()))
-        return float(np.mean(flows[1:]))  # the first is against zeros
 
-    raw = mean_flow()
-    for v in built.params["flow"]["conv_2"].values():
-        v.mul_(NATIVE_FLOW / raw)
-    flow = mean_flow()
-    log(f"native flows: mean |flow| {flow:.3f} HR pixels over frames "
-        f"2..{len(frames)} ({raw:.3f} before the head was scaled; quality "
-        f"widths, {NATIVE_FLOW_BLOCKS} + {NATIVE_FLOW_BLOCKS} res blocks, "
-        f"random undamped weights)")
-    if flow < NATIVE_MIN_FLOW:
-        raise AssertionError("native flows: the flows are too small to "
-                             "test the artifact's flow net")
-    package = os.path.join(out_dir, "native_flows")
+def write_model_set(out, weights, seed):
+    """The four tiers' packages with their ``step.pt2`` sets for the card,
+    written by ``python -m joshupscale_torch.tools.make_model_set`` into
+    ``out``: one process for each entry of ``NATIVE_SET_PROCESSES``, run
+    side by side, each exporting its tiers one after the other.  Returns
+    each tier's export + compile seconds as the tool prints them, and
+    each process's wall seconds.  A failed process raises with its
+    output."""
+    import re
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = []
     t0 = time.perf_counter()
-    save_package(package, config, built, export_aoti=True, device=device)
-    compile_s = time.perf_counter() - t0
-    shown, kept, _ = native_step_check(
-        torch, "native flows", load_aoti_step(package),
-        Engine(model, built.params, device=device), frames, device)
-    return {"mean_flow": flow, "compile_s": compile_s,
-            "max_diff": shown, "state_max_diff": kept}
+    for names in NATIVE_SET_PROCESSES:
+        cmd = [sys.executable, "-m", "joshupscale_torch.tools.make_model_set",
+               "--out", out, "--seed", str(seed), "--models", *names]
+        for n in names:
+            cmd += ["--weights", f"{n}={weights[n]}"]
+        procs.append((names, subprocess.Popen(
+            cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    compile_s, wall_s, failed = {}, {}, []
+    for names, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        wall_s[names] = time.perf_counter() - t0
+        for n, s in re.findall(r"\[(\w+)\] step\.pt2 for \S+ written in "
+                               r"([0-9.]+) s", text):
+            compile_s[n] = float(s)
+        if proc.returncode != 0 or set(names) - set(compile_s):
+            failed.append(f"make_model_set --models {' '.join(names)} "
+                          f"(exit {proc.returncode}):\n{text[-4000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return compile_s, wall_s
 
 
-def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
-    """Native serving over the port: the C++ host
-    (``joshupscale_torch/native``, built here; the op library was built
-    before the kernels' first launch, ``ops_build_s``) and the quality
-    tier exported at full width in bf16 with ``phase_runtime``'s seeded
-    params to ``step.pt2`` on the card (``save_package(...,
-    export_aoti=True)``; compile seconds and the package's size).  One
-    profiled run of the loaded artifact must launch 68 K1 + 1 K2,
-    counted by kernel name in the trace (the wrappers' counters do not
-    run inside the artifact).  In process, the artifact's frames and
-    float state against ``Engine``'s over ``NATIVE_CHECKED`` frames
-    (``native_step_check``), then the same with flows large enough to
-    show a wrong flow net (``native_flow_check``: the seeded weights
-    damp the flow head).  ``upscale_cli`` on moving-pattern frames: the
-    embedded-Python backend bit for bit with ``Engine.process``, the
-    Python-free backend (``JOSHUPSCALE_TORCH_AOTI=1``) within the
-    card-vs-CPU gate over ``NATIVE_CHECKED`` frames (max and mean
-    printed), each synchronous and ``--pipeline``.  A frame's time for
-    each backend and mode is the difference quotient of a short and a
-    long run's frame loops as the CLI times them (``NATIVE_RUNS``), so
-    loading and the first frames' warm-up cancel; printed beside
-    ``engine_ms``, ``Engine.process``'s median on the same tier and
-    params (``phase_times``, before any profiler session).  The
-    Python-free backend's synchronous time must be at least the
-    artifact's device time a frame in the trace."""
+def host_pattern(h, w):
+    """The fake OBS host's source frame (``fake_obs_host.cc``
+    ``stagePattern``) in the model's row order."""
+    y, x = np.mgrid[0:h, 0:w]
+    return np.stack([(y * 31 + x * 7 + c * 3) % 256 for c in range(3)],
+                    -1).astype(np.uint8)
+
+
+def masked_compose(out, orig, mask):
+    """``native/src/compose.cc``: the original frame and the keep-mask
+    scaled (nearest) to the output, blended in fixed point; a keep of 255
+    passes the upscale through untouched."""
+    oh, ow, _ = out.shape
+    o = orig[np.arange(oh) * orig.shape[0] // oh][
+        :, np.arange(ow) * orig.shape[1] // ow].astype(np.uint32)
+    keep = mask[np.arange(oh) * mask.shape[0] // oh][
+        :, np.arange(ow) * mask.shape[1] // ow].astype(np.uint32)[..., None]
+    v = o * (255 - keep) + out.astype(np.uint32) * keep + 128
+    composed = ((v + (v >> 8)) >> 8).astype(np.uint8)
+    return np.where(keep == 255, out, composed).astype(np.uint8)
+
+
+def native_obs(torch, host, set_dir, engines, out_dir):
+    """The fake OBS host (``native/tests/fake_obs_host.cc``) over the
+    set with the Python-free backend on the card: render ``model_psp``
+    twice, swap to ``model_ps2`` (the masked HUD compose with the set's
+    ``mask.png``), a missing model, and the recovery.  The set's view
+    leaves ``model_ps2_fast`` out, so that the host has a model to miss.
+    Each presented frame is held to ``Engine``'s (the compose replayed
+    in numpy for the PS2 frames) within the card-vs-CPU gate.  Returns
+    the largest u8 difference."""
+    import subprocess
+
+    from PIL import Image
+
+    view = os.path.join(out_dir, "obs_view")
+    os.makedirs(view)
+    for name in ("model_psp", "model_ps2", "mask.png"):
+        os.symlink(os.path.join(set_dir, name), os.path.join(view, name))
+    out = os.path.join(out_dir, "obs_out")
+    os.makedirs(out)
+    env = dict(os.environ, JOSHUPSCALE_TORCH_AOTI="1")
+    env.pop("JOSHUPSCALE_TORCH_DEVICE", None)
+    proc = subprocess.run([os.path.join(host, "fake_obs_host"), view, out],
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+    if (proc.returncode != 0 or "fake obs host OK" not in proc.stdout
+            or "AOTInductor engine loaded" not in proc.stderr):
+        raise AssertionError(f"fake_obs_host failed (exit "
+                             f"{proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+
+    def presented(name):
+        raw = np.fromfile(os.path.join(out, name), np.uint8)
+        return raw.reshape(4 * H, 4 * W, 4)[:, :, :3]  # BGRX -> BGR
+
+    pattern = host_pattern(H, W)
+    for engine in engines.values():
+        engine.reset()
+    psp = [engines["model_psp"].process(pattern) for _ in range(2)]
+    mask = np.asarray(Image.open(os.path.join(set_dir, "mask.png")))
+    ps2 = masked_compose(engines["model_ps2"].process(pattern), pattern,
+                         mask)
+    return max(card_vs_cpu("native obs", f"presented {name}",
+                           presented(name), ref, against="Engine.process")
+               for name, ref in (("psp_0.raw", psp[0]), ("psp_1.raw", psp[1]),
+                                 ("ps2_0.raw", ps2),
+                                 ("ps2_recovered.raw", ps2)))
+
+
+def native_installed(host, out_dir, package, frames_path, want):
+    """``cmake --install`` of the host into a prefix under ``out_dir``,
+    then the Python-free ``upscale_cli`` of the prefix on ``package`` with
+    the port's build trees (``joshupscale_torch/_build``: the host, the op
+    library, the kernels' libraries) moved away: its frames must be
+    ``want``, the build tree's own ``upscale_cli`` output, byte for byte.
+    The trees are moved back after it, whatever happens."""
+    import subprocess
+
     from joshupscale_torch import native
+
+    prefix = os.path.join(out_dir, "prefix")
+    proc = subprocess.run(["cmake", "--install", host, "--prefix", prefix],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise AssertionError(f"cmake --install failed:\n{proc.stdout}"
+                             f"{proc.stderr}")
+    trees = str(native.BUILD_DIR.parent)
+    os.rename(trees, trees + ".moved")
+    try:
+        got, _ = native_cli(host, package, frames_path, len(want), True,
+                            False, cli=os.path.join(prefix, "bin",
+                                                    "upscale_cli"))
+    finally:
+        os.rename(trees + ".moved", trees)
+    exact = bool(np.array_equal(got, want))
+    log(f"native installed: upscale_cli of the install prefix, with "
+        f"{trees} moved away, served {len(want)} frames bit for bit with "
+        f"the build tree's: {exact}")
+    if not exact:
+        raise AssertionError("native installed: the installed host's "
+                             "frames differ from the build tree's")
+
+
+def native_tier(torch, name, package, frames, device, host, frames_path):
+    """One tier of the set on the card: a profiled run of its loaded
+    ``step.pt2`` must launch the tier's K1 (``NATIVE_TIERS``) + 1 K2,
+    counted by kernel name in the trace; its frames and float state
+    against ``Engine``'s over ``NATIVE_CHECKED`` frames
+    (``native_step_check``; ``Engine``'s frames must not be clipped
+    flat); the Python-free ``upscale_cli`` synchronous on the same frames
+    within the card-vs-CPU gate of ``Engine.process``.  Returns the
+    results, ``Engine``'s frames and the engine (reset)."""
     from joshupscale_torch.export.package import (
         load_aoti_step,
-        save_package,
+        load_package,
         state_leaves,
     )
-    from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import Engine
 
-    started = time.perf_counter()
-    t0 = time.perf_counter()
-    host = str(native.build())
-    host_s = time.perf_counter() - t0
-    config = quality_config()
-    built = create_models(config, seed=seed)["inference"]
-    built.params = seeded_params(torch, built, seed)
-    package = os.path.join(out_dir, "native_quality")
-    t0 = time.perf_counter()
-    save_package(package, config, built, export_aoti=True, device=device)
-    compile_s = time.perf_counter() - t0
-    size_mb = os.path.getsize(os.path.join(package, "step.pt2")) / 2**20
-    log(f"native: host build (cmake + ninja) {host_s:.1f} s, op library "
-        f"build {ops_build_s:.1f} s; quality tier exported and compiled "
-        f"to step.pt2 on the card in {compile_s:.1f} s, {size_mb:.1f} MiB")
-
-    model = built.obj
+    model, params = load_package(package)
     step = load_aoti_step(package)
-    frames = frames_for(NATIVE_RUNS[1], seed)
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     state = state_leaves(model.init_state(1, device=device))
     traced = {}
@@ -2392,28 +2492,107 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
 
     with torch.no_grad():
         step(dev_frame, *state)
-    k1, k2 = counted_session("native step.pt2", count, (K1_PER_FRAME, 1))
-    events, groups = traced["events"], traced["groups"]
+    expected = (NATIVE_TIERS[name], 1)
+    launches = counted_session(f"native {name}", count, expected)
     parts = {}
-    for g, e in zip(groups, events):
+    for g, e in zip(traced["groups"], traced["events"]):
         parts[g] = parts.get(g, 0.0) + e["dur"] / 1e3
     device_ms = sum(parts.values())
-    log(f"native: one run of the loaded artifact launches {k1} K1 + {k2} "
-        f"K2 (kernel names in the trace), {len(events)} device events, "
-        f"device {device_ms:.3f} ms, by part: " + ", ".join(
-            f"{g} {v:.3f}" for g, v in sorted(parts.items(),
-                                              key=lambda kv: -kv[1])))
-    if (k1, k2) != (K1_PER_FRAME, 1):
-        raise AssertionError("native: the artifact must launch 68 K1 + 1 K2")
-
-    engine = Engine(model, built.params, device=device)
+    log(f"native {name}: one run of the loaded artifact launches "
+        f"{launches[0]} K1 + {launches[1]} K2 (kernel names in the trace), "
+        f"{len(traced['events'])} device events, device {device_ms:.3f} ms, "
+        f"by part: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(
+            parts.items(), key=lambda kv: -kv[1])))
+    if launches != expected:
+        raise AssertionError(f"native {name}: the artifact must launch "
+                             f"{expected[0]} K1 + 1 K2")
+    engine = Engine(model, params, device=device)
     *step_diff, ref = native_step_check(
-        torch, "native step.pt2", step, engine, frames[:NATIVE_CHECKED],
+        torch, f"native {name}", step, engine, frames[:NATIVE_CHECKED],
         device)
-    del engine
-    flows = native_flow_check(torch, seed, device, out_dir)
+    inside = float(((ref > 0) & (ref < 255)).mean())
+    if inside < 0.5:
+        raise AssertionError(f"native {name}: Engine's output mostly "
+                             f"clipped ({inside:.4f} inside): the check is "
+                             f"trivial")
+    got, _ = native_cli(host, package, frames_path, NATIVE_CHECKED, True,
+                        False)
+    cli_diff = card_vs_cpu(f"native {name} upscale_cli aoti",
+                           f"{NATIVE_CHECKED} frames", got, ref,
+                           against="Engine.process")
+    engine.reset()
+    size_mb = os.path.getsize(os.path.join(package, "step.pt2")) / 2**20
+    return {"launches": launches, "device_ms": device_ms,
+            "step_diff": step_diff, "cli_diff": cli_diff,
+            "size_mb": size_mb, "inside": inside}, ref, engine, got
+
+
+def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
+    """Native serving over the port: the C++ host
+    (``joshupscale_torch/native``, built here; the op library was built
+    before the kernels' first launch, ``ops_build_s``) and the OBS model
+    set on the Python-free backend.  ``make_model_set`` writes the four
+    tiers at full width (270x480, bf16) with their ``step.pt2`` sets
+    compiled on the card (``write_model_set``: compile seconds a tier and
+    the package sizes printed), each tier from a ``--weights`` npz of
+    seeded params (``tier_weights``; ``model_psp_fast``'s flow head scaled
+    to large flows).  Each tier is checked by ``native_tier``: its
+    artifact's K1 + K2 in a trace, frames and float state against
+    ``Engine``'s, ``upscale_cli`` Python-free against ``Engine.process``.
+    Then the fake OBS host over the set (``native_obs``), the installed
+    host with the build trees moved away (``native_installed``), and on
+    the quality tier ``model_psp`` the backends' timing:
+    ``upscale_cli`` on moving-pattern frames, the embedded-Python backend
+    bit for bit with ``Engine.process``, the Python-free backend within
+    the card-vs-CPU gate, each synchronous and ``--pipeline``.  A frame's
+    time for each backend and mode is the difference quotient of a short
+    and a long run's frame loops as the CLI times them (``NATIVE_RUNS``),
+    so loading and the first frames' warm-up cancel; printed beside
+    ``engine_ms``, ``Engine.process``'s median on the quality tier
+    (``phase_times``, before any profiler session).  The Python-free
+    backend's synchronous time must be at least the artifact's device
+    time a frame in the trace."""
+    from joshupscale_torch import native
+
+    started = time.perf_counter()
+    t0 = time.perf_counter()
+    host = str(native.build())
+    host_s = time.perf_counter() - t0
+    log(f"native: host build (cmake + ninja) {host_s:.1f} s, op library "
+        f"build {ops_build_s:.1f} s")
+    weights = {n: os.path.join(out_dir, f"{n}_weights.npz")
+               for n in NATIVE_TIERS}
+    flow = None
+    for n, path in weights.items():
+        flow = tier_weights(torch, n, seed, device, path) or flow
+    set_dir = os.path.join(out_dir, "model_set")
+    compile_s, wall_s = write_model_set(set_dir, weights, seed)
+    log("native set: make_model_set wrote the four tiers for the card: "
+        + "; ".join(f"process {' + '.join(names)}: "
+                    + ", ".join(f"{n} {compile_s[n]:.1f} s" for n in names)
+                    + f", {wall_s[names]:.1f} s in all"
+                    for names in NATIVE_SET_PROCESSES))
+
+    frames = frames_for(NATIVE_RUNS[1], seed)
     frames_path = os.path.join(out_dir, "native_frames.raw")
     frames.tofile(frames_path)
+    tiers, engines = {}, {}
+    for name in NATIVE_TIERS:
+        package = os.path.join(set_dir, name)
+        tiers[name], ref, engine, aoti_out = native_tier(
+            torch, name, package, frames, device, host, frames_path)
+        tiers[name]["compile_s"] = compile_s[name]
+        if name in ("model_psp", "model_ps2"):
+            engines[name] = engine
+        if name == "model_psp":
+            quality_ref, quality_aoti = ref, aoti_out
+        del engine
+    obs_diff = native_obs(torch, host, set_dir, engines, out_dir)
+    engines.clear()
+    native_installed(host, out_dir, os.path.join(set_dir, "model_psp"),
+                     frames_path, quality_aoti)
+
+    package = os.path.join(set_dir, "model_psp")
     ms, check = {}, {}
     for aoti in (False, True):
         backend = "aoti" if aoti else "python"
@@ -2427,7 +2606,7 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
             ms[backend, mode] = (t_long - t_short) / (
                 NATIVE_RUNS[1] - NATIVE_RUNS[0]) * 1e3
             if not aoti:
-                exact = bool(np.array_equal(got, ref))
+                exact = bool(np.array_equal(got, quality_ref))
                 log(f"native python {mode}: {NATIVE_CHECKED} frames bit for "
                     f"bit with Engine.process: {exact}")
                 if not exact:
@@ -2437,22 +2616,22 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
             else:
                 check[backend, mode] = card_vs_cpu(
                     f"native aoti {mode}", f"{NATIVE_CHECKED} frames", got,
-                    ref, against="Engine.process")
+                    quality_ref, against="Engine.process")
+    device_ms = tiers["model_psp"]["device_ms"]
     seconds = time.perf_counter() - started
-    log(f"native: ms a frame ({NATIVE_RUNS[1]}- vs {NATIVE_RUNS[0]}-frame "
-        f"runs of upscale_cli, the CLI's own frame-loop clock): "
-        + ", ".join(f"{b} {m} {v:.3f}" for (b, m), v in ms.items())
+    log(f"native: ms a frame on model_psp ({NATIVE_RUNS[1]}- vs "
+        f"{NATIVE_RUNS[0]}-frame runs of upscale_cli, the CLI's own "
+        f"frame-loop clock): " + ", ".join(f"{b} {m} {v:.3f}" for (b, m), v
+                                           in ms.items())
         + f"; Engine.process median {engine_ms:.3f} ms; artifact device "
         f"{device_ms:.3f} ms a frame; phase {seconds:.1f} s")
     if ms["aoti", "sync"] < device_ms:
         raise AssertionError("native: the Python-free backend's synchronous "
                              "ms a frame is below the artifact's device time "
                              "a frame: the timing is at fault")
-    return {"host_s": host_s, "compile_s": compile_s, "size_mb": size_mb,
-            "launches": (k1, k2), "ms": ms,
-            "engine_ms": engine_ms, "device_ms": device_ms,
-            "max_diff": check, "step_diff": step_diff, "flows": flows,
-            "seconds": seconds}
+    return {"host_s": host_s, "tiers": tiers, "wall_s": wall_s,
+            "mean_flow": flow, "obs_diff": obs_diff, "ms": ms,
+            "engine_ms": engine_ms, "max_diff": check, "seconds": seconds}
 
 
 DOOR_EXAMPLES = 8  # pair examples written to the TFRecord file
@@ -3100,7 +3279,8 @@ def main() -> int:
                "doors export": doors["export_launches"],
                "doors load_trained_params": doors["loaded_launches"],
                "mesh export": mesh["export_launches"],
-               "native step.pt2 (trace)": nat["launches"],
+               **{f"native {n} step.pt2 (trace)": t["launches"]
+                  for n, t in nat["tiers"].items()},
                "gan play (one prediction, f32)": (gan["play_k1"], 0),
                **{name: (spatial[name]["k1"], spatial[name]["k2"])
                   for name in spatial}}
@@ -3245,20 +3425,24 @@ def main() -> int:
         f"{g['step_ms'][1]:.1f} ms; served 68 K1 + 1 K2 a step, u8 max "
         f"{mesh['frames_max_diff']} against the one-process params; spawn "
         f"{mesh['spawn_s']:.1f} s; phase {mesh['seconds']:.1f} s on {card}")
-    log(f"native (quality, 270x480 bf16, step.pt2 {nat['size_mb']:.1f} MiB "
-        f"compiled in {nat['compile_s']:.1f} s, host build "
-        f"{nat['host_s']:.1f} s): {nat['launches'][0]} K1 + "
-        f"{nat['launches'][1]} K2 in the artifact; ms a frame through "
-        f"upscale_cli: " + ", ".join(f"{b} {m} {v:.3f}" for (b, m), v in
-                                      nat["ms"].items())
+    for n, t in nat["tiers"].items():
+        log(f"native {n} (270x480 bf16, written by make_model_set): "
+            f"step.pt2 {t['size_mb']:.1f} MiB compiled in "
+            f"{t['compile_s']:.1f} s; {t['launches'][0]} K1 + "
+            f"{t['launches'][1]} K2 in the artifact, device "
+            f"{t['device_ms']:.3f} ms a frame; against Engine: in process "
+            f"u8 max {t['step_diff'][0]}, state max {t['step_diff'][1]:.3f} "
+            f"u8 steps, upscale_cli aoti u8 max {t['cli_diff']}"
+            + (f"; mean |flow| {nat['mean_flow']:.3f} px"
+               if n == "model_psp_fast" else "") + f" on {card}")
+    log(f"native (host build {nat['host_s']:.1f} s; set written by two "
+        f"processes in {max(nat['wall_s'].values()):.1f} s): ms a frame on "
+        f"model_psp through upscale_cli: " + ", ".join(
+            f"{b} {m} {v:.3f}" for (b, m), v in nat["ms"].items())
         + f" beside Engine.process {nat['engine_ms']:.3f} and the "
-        f"artifact's device time {nat['device_ms']:.3f}; aoti u8 max "
-        f"{max(nat['max_diff'].values())} against Engine; in process, u8 "
-        f"max {nat['step_diff'][0]} and state max "
-        f"{nat['step_diff'][1]:.3f} u8 steps, with flows of mean "
-        f"{nat['flows']['mean_flow']:.3f} px u8 max "
-        f"{nat['flows']['max_diff']} and state max "
-        f"{nat['flows']['state_max_diff']:.3f}; phase "
+        f"artifact's device time {nat['tiers']['model_psp']['device_ms']:.3f}"
+        f"; aoti u8 max {max(nat['max_diff'].values())} against Engine; "
+        f"fake OBS host over the set u8 max {nat['obs_diff']}; phase "
         f"{nat['seconds']:.1f} s on {card}")
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     log(card)

@@ -123,13 +123,29 @@ class ServingStep(torch.nn.Module):
         return (out, *state_leaves(new_state))
 
 
+def clear_trace_caches() -> None:
+    """Empty the process-wide dispatch cache of torch's fake tensors, so
+    that an export traces and compiles from the state a fresh process
+    has.  Its entries outlive the export that made them: on an H100 with
+    torch 2.11, an artifact exported after another export of the same
+    architecture whose library convs took channels-last views came out
+    off ``Engine`` from frame 0 (state mean 2.0 u8 steps, then 7.5),
+    where the same export in a fresh process, or after this call,
+    matches (``tools/export_isolation.py``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    FakeTensorMode.cache_clear()
+
+
 def export_step(model: InferenceModel, params: Dict[str, Any],
                 batch_size: int = 1, device: DeviceLike = None):
     """``torch.export`` of the serving step (``ServingStep``) on serving
     params made from raw ``params`` on ``device`` (``resolve_device``:
-    by default the card, which must be present; the CPU only if named):
+    by default the card, which must be present; the CPU only if named),
+    traced from a cleared dispatch cache (``clear_trace_caches``):
     returns ``(ExportedProgram, example inputs)``."""
     device = resolve_device(device)
+    clear_trace_caches()
     serving = model.prepare_params(params, device)
     state = model.init_state(batch_size, device=device)
     dtype = torch.float32 if model.skip_processing else torch.uint8

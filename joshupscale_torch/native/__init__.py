@@ -20,6 +20,8 @@ The host picks its backend and device from the environment:
 
 from __future__ import annotations
 
+import contextlib
+import fcntl
 import os
 import re
 import shutil
@@ -34,16 +36,30 @@ BUILD_DIR = SOURCE.parent / "_build" / "native"
 def build(build_dir: Path = BUILD_DIR) -> Path:
     """Configure (every call: it also brings the op library up to date)
     and build the host into ``build_dir`` with ``kernels._build.host_cxx``
-    (a build directory configured otherwise is started afresh); returns
-    ``build_dir``."""
+    (a build directory configured otherwise is started afresh), one
+    process at a time; returns ``build_dir``."""
     cmake = shutil.which("cmake")
     if cmake is None:
         raise RuntimeError("cmake not found: the host over the port is a "
                            "CMake project (joshupscale_torch/native)")
     from joshupscale_torch.kernels._build import host_cxx
 
+    with locked(build_dir):
+        return _build(Path(build_dir), cmake, host_cxx())
+
+
+@contextlib.contextmanager
+def locked(build_dir: Path = BUILD_DIR):
+    """Hold ``build_dir``'s lock: one process at a time configures,
+    builds, installs or packs a tree."""
     build_dir = Path(build_dir)
-    cxx = host_cxx()
+    build_dir.parent.mkdir(parents=True, exist_ok=True)
+    with open(build_dir.parent / f".{build_dir.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield build_dir
+
+
+def _build(build_dir: Path, cmake: str, cxx: str) -> Path:
     cache = build_dir / "CMakeCache.txt"
     if cache.exists() and not all(
             re.search(rf"^{key}:\w+={re.escape(value)}$", cache.read_text(),

@@ -2,6 +2,8 @@
 // strided/bottom-up frame staging, backend selection and createRuntime.
 // A copy of native/src/runtime.cc with the port's own backend choice.
 
+#include <dlfcn.h>
+
 #include <cstdlib>
 #include <cstring>
 #include <memory>
@@ -69,6 +71,26 @@ bool cpuRequested() {
       device);
 }
 
+// The op library's path: JOSHUPSCALE_TORCH_OPS_DEFAULT as compiled in,
+// a file name in the directory that holds this library (the build tree
+// and the install tree alike), or an absolute path.
+std::string opsLibrary() {
+  const std::string name = JOSHUPSCALE_TORCH_OPS_DEFAULT;
+  if (name.empty() || name[0] == '/') {
+    return name;
+  }
+  Dl_info info;
+  if (dladdr(reinterpret_cast<void *>(&createRuntime), &info) == 0 ||
+      info.dli_fname == nullptr) {
+    throw std::runtime_error("Cannot locate libjoshupscale_torch to find "
+                             "the op library " + name);
+  }
+  const std::string self = info.dli_fname;
+  const std::size_t slash = self.rfind('/');
+  return (slash == std::string::npos ? std::string(".")
+                                     : self.substr(0, slash)) + '/' + name;
+}
+
 // Backend choice: JOSHUPSCALE_TORCH_AOTI=1 selects the Python-free
 // AOTInductor path (the counterpart of JOSHUPSCALE_PJRT_PLUGIN), which
 // needs the package's step.pt2 and raises without it; everything else
@@ -79,7 +101,7 @@ std::unique_ptr<Backend> createBackend(int deviceId,
   const char *aoti = std::getenv("JOSHUPSCALE_TORCH_AOTI");
   if (aoti != nullptr && aoti[0] != '\0' && std::strcmp(aoti, "0") != 0) {
     return std::make_unique<AotiEngine>(modelPath, deviceId, cpu,
-                                        JOSHUPSCALE_TORCH_OPS_DEFAULT);
+                                        opsLibrary());
   }
   return std::make_unique<TorchPythonEngine>(deviceId, cpu, modelPath);
 }

@@ -13,14 +13,22 @@ by name from its module data directory (``native/plugins/obs/filter.cc``
 
 Each package is ``model.yaml`` + ``params.npz`` (``export.package``),
 from ``create_models`` with random weights or a tier's ``--weights``
-checkpoint (any layout ``fit`` writes; the prefix is detected).  The
-reference's packages can also carry a StableHLO program for its PJRT
-runtime; the port cannot write one, so ``--no-stablehlo`` is accepted
-and changes nothing.
+checkpoint (any layout ``fit`` writes; the prefix is detected), and by
+default the Python-free serving set that the C++ host's AOTInductor
+backend runs (``JOSHUPSCALE_TORCH_AOTI=1``): ``step.pt2``,
+``step_spec.txt`` and ``state_init.bin``
+(``save_package(..., export_aoti=True)``).  ``step.pt2`` is the port's
+counterpart of the reference's StableHLO program; ``step_spec.txt`` and
+``state_init.bin`` are the reference's own files.  The set is compiled
+for the card (no card is an error); ``--cpu`` compiles it for the CPU,
+and ``--no-stablehlo`` writes none, as the reference's flags pin its CPU
+backend and skip its set.  The tiers are exported one after the other
+in this process.
 
     python -m joshupscale_torch.tools.make_model_set --out dist/data \\
         [--models model_psp ...] [--config model_psp=tiny.yaml] \\
-        [--weights model_psp=checkpoints/gan/best.npz] [--seed 0]
+        [--weights model_psp=checkpoints/gan/best.npz] [--seed 0] \\
+        [--no-stablehlo] [--cpu]
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import argparse
 import os
 import shutil
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -56,9 +65,14 @@ def _parse_overrides(pairs, what):
     return out
 
 
-def build_model_set(out, models=None, configs=None, weights=None, seed=0):
+def build_model_set(out, models=None, configs=None, weights=None,
+                    stablehlo=True, seed=0, device=None):
     """Write the requested packages (default: all four) and the mask into
-    ``out``; returns the package directories written."""
+    ``out``; returns the package directories written.  ``stablehlo``
+    (the reference's keyword) adds each package's Python-free serving
+    set, compiled for ``device`` (``resolve_device``: by default the
+    card, which must be present; the CPU only if named)."""
+    from joshupscale_torch import resolve_device
     from joshupscale_torch.export.importer import detect_checkpoint_prefix
     from joshupscale_torch.export.package import (
         load_model_config,
@@ -68,6 +82,8 @@ def build_model_set(out, models=None, configs=None, weights=None, seed=0):
 
     configs = configs or {}
     weights = weights or {}
+    if stablehlo:
+        device = resolve_device(device)
     os.makedirs(out, exist_ok=True)
     written = []
     for name in models or sorted(MODEL_CONFIGS):
@@ -87,7 +103,12 @@ def build_model_set(out, models=None, configs=None, weights=None, seed=0):
                  else " (random init)"), flush=True)
         built = create_models(config, seed=seed)["inference"]
         path = os.path.join(out, name)
-        save_package(path, config, built)
+        t0 = time.perf_counter()
+        save_package(path, config, built, export_aoti=stablehlo,
+                     device=device)
+        if stablehlo:
+            print(f"[{name}] step.pt2 for {device} written in "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         written.append(path)
     if os.path.exists(MASK):
         shutil.copyfile(MASK, os.path.join(out, "mask.png"))
@@ -108,18 +129,20 @@ def main(argv=None) -> int:
     ap.add_argument("--weights", action="append", metavar="MODEL=NPZ",
                     help="checkpoint for a tier (default random init)")
     ap.add_argument("--no-stablehlo", action="store_true",
-                    help="accepted for the reference tool's sake: the "
-                         "port's packages carry no StableHLO program")
+                    help="skip the Python-free serving set (step.pt2, "
+                         "step_spec.txt, state_init.bin)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu", action="store_true",
-                    help="accepted for the reference tool's sake: writing "
-                         "packages needs no device")
+                    help="compile the serving set for the CPU (default: "
+                         "the card)")
     args = ap.parse_args(argv)
 
     written = build_model_set(
         args.out, models=args.models,
         configs=_parse_overrides(args.config, "config"),
-        weights=_parse_overrides(args.weights, "weights"), seed=args.seed)
+        weights=_parse_overrides(args.weights, "weights"),
+        stablehlo=not args.no_stablehlo, seed=args.seed,
+        device="cpu" if args.cpu else None)
     print(f"wrote {len(written)} package(s) under {args.out}")
     return 0
 

@@ -189,6 +189,56 @@ def test_aoti_artifact_on_card_matches_engine(gen, cuda, tmp_path):
         assert diff.mean() <= 0.5 and (diff > 2).mean() <= 0.01
 
 
+def test_aoti_autoencoder_artifact_on_card_matches_engine(gen, cuda,
+                                                         tmp_path):
+    """The PS2 family as a ``step.pt2`` for the card: the flow
+    autoencoder's library convs, max pools and f32 x2 upscales, the
+    brightness mean and the pad of 21x38 frames to 24x40 (the
+    ``last_frames`` leaf is the padded frame), with random, undamped
+    weights (bf16).  Over 4 recurrent frames, each display frame and each
+    float state leaf is within the card-vs-CPU gate of ``Engine``'s (u8
+    mean 0.5, 1% off by more than 2; the state in u8 steps of its 1/255
+    unit), and the trace launches the generator's 4 K1 and 1 K2 by
+    name."""
+    from joshupscale_torch.export.package import (
+        load_aoti_step,
+        save_package,
+        state_leaves,
+    )
+
+    config = _ps2_config("bfloat16")
+    built = create_models(config, seed=2)["inference"]
+    save_package(str(tmp_path), config, built, export_aoti=True,
+                 device=cuda)
+    step = load_aoti_step(str(tmp_path))
+    engine = Engine(built.obj, built.params)
+    state = state_leaves(built.obj.init_state(1, device=cuda))
+    assert tuple(state[0].shape) == (1, 24, 40, 3)  # padded last frames
+    frames = gen.integers(0, 256, (4, 21, 38, 3)).astype(np.uint8)
+    for i, f in enumerate(frames):
+        if i == 3:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                out, *state = step(torch.from_numpy(f[None]).to(cuda),
+                                   *state)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.name.startswith("triton_")]  # inductor's
+            assert sum("conv3x3" in n for n in names) == 2 * 2
+            assert sum("d2s_display" in n for n in names) == 1
+        else:
+            out, *state = step(torch.from_numpy(f[None]).to(cuda), *state)
+        diff = np.abs(out[0].cpu().numpy().astype(np.int32)
+                      - engine.process(f).astype(np.int32))
+        assert diff.mean() <= 0.5 and (diff > 2).mean() <= 0.01, i
+        for leaf, ref in zip(state, state_leaves(engine.state)):
+            if leaf.is_floating_point():
+                d = (leaf.float() - ref.float()).abs().cpu().numpy() * 255
+                assert d.mean() <= 0.5 and (d > 2).mean() <= 0.01, (
+                    i, tuple(leaf.shape), float(d.mean()))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_display_kernel_bit_exact(gen, cuda, dtype):
     x = torch.from_numpy(np.clip(

@@ -11,7 +11,8 @@ weights through both, the reference tool run in this process.
   ``.onnx`` it writes byte for byte the reference's;
 - ``upscale_images``: the PNGs, engine and ``--onnx`` branches, within
   u8 max 1 of the reference tool's;
-- ``make_model_set``: the same file list, the packages' params equal.
+- ``make_model_set`` (``--no-stablehlo``): the same file list, the
+  packages' params equal.
 
 The package is float32 at 32 filters (K1's plain version takes C in
 {32, 48, 64}), frames 12x16.
@@ -254,8 +255,9 @@ def test_upscale_images_matches_reference_tool(workdir):
 def test_make_model_set_matches_reference_tool(workdir):
     """Both tools lay out the four packages and the mask from tiny tier
     configs with a checkpoint for each tier: the same files, and each
-    package's params equal.  The port takes ``--no-stablehlo`` and
-    changes nothing."""
+    package's params equal.  ``--no-stablehlo`` leaves out both tools'
+    Python-free serving sets (the port's ``step.pt2`` set is held to the
+    reference tool's in ``tests/test_torch_model_set.py``)."""
     import yaml
 
     from joshupscale_torch.export.importer import save_params_npz
