@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc`` and
 prints each kernel's registers and spills (``ptxas -v``), holds K1 (C =
-32, 48, 64; full frame at 48 and 64, and at N = 2 and 4) and K2 (full
+32, 48, 64; full frame at each, and at N = 2 and 4) and K2 (full
 frame at N = 1, 2 and 4) against their plain PyTorch versions on the
 card, then drives every serving path through
 ``Engine.process`` with seeded random weights at 270x480 -> 1080x1920:
@@ -76,7 +76,8 @@ card-vs-CPU step's bounds, the ranks' params bit for bit), one damped
 GAN step the same way (the same gate decision), the ranks' all-reduce
 count and gloo's all-reduce time, and rank 0's params served as a
 package (68 K1 + 1 K2 a step, frames against the one-process params'
-package).  The native phase (``phase_native``) follows: the C++ host
+package).  Then the conv probe and the replayed graphs' kernel counts
+(below) run, and the native phase (``phase_native``) follows: the C++ host
 over the port (``joshupscale_torch/native``) built; the OBS model set
 written by ``python -m joshupscale_torch.tools.make_model_set`` at full
 width with each tier's ``step.pt2`` compiled on the card (two processes
@@ -85,25 +86,38 @@ a ``--weights`` npz whose flow head makes 4 px flows); each tier's
 artifact counted in its trace (68 / 36 / 48 / 24 K1 + 1 K2 by kernel
 name), its frames and float state held to ``Engine``'s, and served
 through ``upscale_cli`` with the Python-free backend within the
-card-vs-CPU gate; the fake OBS host over the set (the psp -> ps2 swap,
-the masked HUD compose, a missing model and the recovery) against
-``Engine``; the host installed (``cmake --install``) and its
-``upscale_cli`` run with the build trees moved away; and on the quality
-tier the embedded-Python backend (bit for bit with ``Engine.process``)
-and the Python-free one, each synchronous and pipelined, with ms a
-frame.  Then it
-drives the conv probe (``joshupscale_torch.tools.conv_probe.run``),
-which holds P1 and P2 against their plain versions at full shape (all
-five variants) and times them; checks that it went through P1 and P2;
-and prints K1, P2, P1 and cuDNN side by side at the res-block conv's
+card-vs-CPU gate; two more processes beside them write the int8 tiers
+of the int8 phase (quality with dynamic and with calibrated scales in
+one, ``ps2_style`` in the other) as ``step.pt2`` sets for the card,
+each checked the same way (0 K1 + 1 K2 in the trace, its graph's
+``aten._int_mm`` nodes equal to its quantized convs, against the int8
+``Engine``).  While any export runs, only untimed checks run here
+(the artifacts against ``Engine``, the fake OBS host, the installed
+host; the host builds beside the exports); the traces and the
+timings come after the last export has ended.  The
+fake OBS host over the set (the psp -> ps2 swap, the masked HUD
+compose, a missing model and the recovery) against ``Engine``; the host
+installed (``cmake --install``) and its ``upscale_cli`` run with the
+build trees moved away; the embedded-Python backend's refusal of an
+int8 package; on the quality tier the embedded-Python backend (bit for
+bit with ``Engine.process``) and the Python-free one, and on ``int8
+quality`` the Python-free one, each synchronous and pipelined, with ms
+a frame.  The conv probe (``joshupscale_torch.tools.conv_probe.run``)
+holds P1 and P2 against their plain versions at full shape (all five
+variants) and times them, checks that it went through P1 and P2, and
+prints K1, P2, P1 and cuDNN side by side at the res-block conv's
 shape, and P2's fused pair (a whole res block in one launch) beside
-K1's two launches.  Last come the phases under ``torch.profiler``
-(a profiler session can leave the host launching more slowly, so every
-host-clock timing comes before them; the quality step is timed once
-more after them, labelled): each path's replays counted by kernel, the
-PS2 steps' device time split by stage and kernel, and ``fit``'s profiler
+K1's two launches.  The phases under ``torch.profiler`` come after
+every host-clock timing of this process (a profiler session can leave
+the host launching more slowly; the quality step is timed once more
+after them, labelled): each path's replays counted by kernel and the
+PS2 steps' device time split by stage and kernel (before the native
+phase), the training steps' device time and ``fit``'s profiler
 window (``profile_fit``: 4 full-width bf16 FRVSR steps, steps 1..2
-traced; the trace must hold CUDA kernel events).  K1's and the
+traced; the trace must hold CUDA kernel events); after the native
+phase one more session of the quality graph's replays is logged,
+informational (``recount_after_native``).  The end of each group of
+phases is logged with the script's elapsed time.  K1's and the
 probes' lines and kernel entries carry the
 share of the bf16 peak and the fraction of the bound's rate.  Fails if
 P2 spills registers.
@@ -174,7 +188,8 @@ def k1_bound_ms(n, h, w, c, residual) -> tuple:
 
 def phase_k1(torch, rng, device):
     """K1 vs its plain version: the full frame in bf16 at C = 64 (the
-    quality and PS2-style generators), 48 (PS2-fast) and C = 64 at N = 2
+    quality and PS2-style generators), 48 (PS2-fast), 32 (the fast
+    tier's flow net) and C = 64 at N = 2
     and 4 (the batches of ``ShardedEngine``), C = 32/48 and f32 small.
     Returns the largest error at full frame by C (N = 2 and 4 as "n2"
     and "n4")."""
@@ -199,11 +214,12 @@ def phase_k1(torch, rng, device):
     tol = {torch.bfloat16: 1 / 64, torch.float32: 1e-4}
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [((1, H, W), 64, bf16), ((1, H, W), 48, bf16),
+             ((1, H, W), 32, bf16),
              ((2, H, W), 64, bf16), ((4, H, W), 64, bf16),
              ((2, 19, 37), 32, bf16),
              ((2, 19, 37), 48, bf16), ((1, 45, 80), 64, f32),
              ((2, 19, 37), 32, f32)]
-    worst_main = {64: 0.0, 48: 0.0, "n2": 0.0, "n4": 0.0}
+    worst_main = {64: 0.0, 48: 0.0, 32: 0.0, "n2": 0.0, "n4": 0.0}
     for shape, c, dtype in cases:
         x, wt, s, t, r = operands(shape, c, dtype)
         for res, act in ((None, "relu"), (r, "relu"), (r, "lrelu")):
@@ -441,12 +457,45 @@ def check_graph_kernels(torch, name, engine, frames, device, k1_per_frame,
     it recorded at capture (``counted_session``)."""
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     expected = (k1_per_frame, k2_per_frame)
-    per = counted_session(
-        name, lambda: replay_kernels(torch, engine, dev_frame)[2], expected)
+    last = {}
+
+    def count():
+        _, last["events"], per = replay_kernels(torch, engine, dev_frame)
+        return per
+
+    per = counted_session(name, count, expected)
     log(f"{name}: profiled replays run {per[0]:g} K1 and {per[1]:g} K2 "
         f"kernels each")
     if per != expected:
+        groups = [kernel_group(e["name"]) for e in last["events"]]
+        log(f"{name}: the last session's {len(groups)} device events by "
+            f"part: " + ", ".join(f"{g} {groups.count(g)}"
+                                  for g in sorted(set(groups))))
         raise AssertionError(f"{name}: a replay ran {per} K1/K2 kernels")
+
+
+def recount_after_native(torch, name, engine, frames, k1_per_frame,
+                         k2_per_frame, device, n=3):
+    """One profiler session of ``n`` replays of ``name``'s frame graph
+    after ``phase_native``, informational (``phase_profiled`` held the
+    counts before any int8 artifact ran in this process): K1 and K2
+    records a replay against the graph's ``k1_per_frame`` +
+    ``k2_per_frame``, device events a replay, and each kernel name whose
+    records are not a whole number a replay (a record lost, or filed
+    under another name).  Returns K1 and K2 a replay."""
+    dev_frame = torch.from_numpy(frames[0][None]).to(device)
+    _, events, per = replay_kernels(torch, engine, dev_frame, n=n)
+    counts = {}
+    for e in events:
+        counts[e["name"]] = counts.get(e["name"], 0) + 1
+    odd = sorted((k, v) for k, v in counts.items() if v % n)
+    log(f"{name} after phase_native: {n} replays in one profiler session: "
+        f"{per[0]:g} K1 + {per[1]:g} K2 a replay (the graph holds "
+        f"{k1_per_frame} + {k2_per_frame}), {len(events) / n:g} device "
+        f"events a replay; kernel names whose records are not a whole "
+        f"number a replay: "
+        + (", ".join(f"{k[:90]} {v}" for k, v in odd) or "none"))
+    return per
 
 
 def drive_path(torch, name, config, seed, device, k1_per_frame,
@@ -915,7 +964,8 @@ def profile_stages(torch, name, engine, frames, device, split):
 def phase_ps2(torch, seed, device, paths):
     """The two PS2 tiers at full width: driven, checked, timed and their
     stages timed (each engine kept in ``paths`` for the profiler
-    phases); K1 at C = 48 timed on the PS2-fast path."""
+    phases); K1 at C = 48 (the PS2-fast generator) and C = 32 (the fast
+    tier's flow net) timed."""
     out = {}
     for tier in ("ps2_style", "ps2_fast"):
         k1_per_frame = 2 * PS2_LADDERS[tier][2]
@@ -926,6 +976,7 @@ def phase_ps2(torch, seed, device, paths):
         out[tier] = {"k1": k1, "k2": k2, "split": split, **tf}
         paths[tier] = (engine, frames, k1_per_frame, 1)
     out["k1_c48"], out["lib_ms_c48"] = time_k1(torch, device, 48)
+    out["k1_c32"], out["lib_ms_c32"] = time_k1(torch, device, 32)
     return out
 
 
@@ -1016,7 +1067,8 @@ def phase_int8(torch, seed, device, paths):
         f"CPU {t_cpu:.1f} s; largest relative gap between the two range "
         f"maps {gap:.3g}")
     out["calibration"] = {"keys": len(ranges), "max_rel_gap": gap,
-                          "card_s": t_card, "cpu_s": t_cpu}
+                          "card_s": t_card, "cpu_s": t_cpu,
+                          "ranges": ranges}
     run("int8 quality calibrated", quality_config(),
         lambda p: quantize_params_int8(p, ranges=ranges))
     run("int8 ps2_style", ps2_config("ps2_style"), quantize_params_int8)
@@ -2216,12 +2268,7 @@ def native_cli(host, package, frames_path, n, aoti, pipeline, keep=True,
     import re
     import subprocess
 
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    env.pop("JOSHUPSCALE_TORCH_DEVICE", None)
-    env.pop("JOSHUPSCALE_TORCH_AOTI", None)
-    if aoti:
-        env["JOSHUPSCALE_TORCH_AOTI"] = "1"
+    env = repo_env(aoti)
     with tempfile.TemporaryDirectory() as d:
         out_path = os.path.join(d, "out.raw") if keep else os.devnull
         cmd = [cli or os.path.join(host, "upscale_cli")] + (
@@ -2313,46 +2360,107 @@ def tier_weights(torch, name, seed, device, path):
     return flow
 
 
-def write_model_set(out, weights, seed):
-    """The four tiers' packages with their ``step.pt2`` sets for the card,
-    written by ``python -m joshupscale_torch.tools.make_model_set`` into
-    ``out``: one process for each entry of ``NATIVE_SET_PROCESSES``, run
-    side by side, each exporting its tiers one after the other.  Returns
-    each tier's export + compile seconds as the tool prints them, and
-    each process's wall seconds.  A failed process raises with its
-    output."""
-    import re
-    import subprocess
-
+def repo_env(aoti=False):
+    """The environment of a process this script starts: the repo
+    importable; for the port's host, the card (no
+    ``JOSHUPSCALE_TORCH_DEVICE``) and the embedded-Python backend, or
+    the Python-free one with ``aoti``."""
     env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    env.pop("JOSHUPSCALE_TORCH_DEVICE", None)
+    env.pop("JOSHUPSCALE_TORCH_AOTI", None)
+    if aoti:
+        env["JOSHUPSCALE_TORCH_AOTI"] = "1"
+    return env
+
+
+def set_process(names, cmd, log_path):
+    """Start one exporting process of the set, ``cmd`` from the repo root
+    with the repo importable, its output written to ``log_path`` (a pipe
+    left unread while other processes are collected could fill and stall
+    it): ``(names, process, start time, log_path)``."""
+    import subprocess
+
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(cmd, cwd=HERE, env=repo_env(), stdout=out,
+                                stderr=subprocess.STDOUT, text=True)
+    return names, proc, time.perf_counter(), log_path
+
+
+def start_model_set(out, weights, seed, log_dir):
+    """The four float tiers' packages with their ``step.pt2`` sets for the
+    card, written by ``python -m joshupscale_torch.tools.make_model_set``
+    into ``out``: one process for each entry of ``NATIVE_SET_PROCESSES``,
+    started side by side, each exporting its tiers one after the other
+    (``set_process``)."""
     procs = []
-    t0 = time.perf_counter()
     for names in NATIVE_SET_PROCESSES:
         cmd = [sys.executable, "-m", "joshupscale_torch.tools.make_model_set",
                "--out", out, "--seed", str(seed), "--models", *names]
         for n in names:
             cmd += ["--weights", f"{n}={weights[n]}"]
-        procs.append((names, subprocess.Popen(
-            cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    compile_s, wall_s, failed = {}, {}, []
-    for names, proc in procs:
+        procs.append(set_process(names, cmd, os.path.join(
+            log_dir, f"{names[0]}_export.log")))
+    return procs
+
+
+def start_int8_export(out, seed, ranges, log_dir):
+    """The int8 tiers' exporting processes (``export_int8_tiers`` into
+    ``out``), one for each entry of ``NATIVE_INT8_PROCESSES``, started
+    side by side; ``ranges``, the calibrated tier's range map, passed on
+    in ``int8_ranges.json``."""
+    ranges_path = os.path.join(log_dir, "int8_ranges.json")
+    with open(ranges_path, "w") as f:
+        json.dump(ranges, f)
+    return [set_process(names, [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "sys.exit(chip_smoke.export_int8_tiers(*sys.argv[1:]))",
+        out, str(seed), ranges_path, *names],
+        os.path.join(log_dir, f"{names[0]}_export.log"))
+        for names in NATIVE_INT8_PROCESSES]
+
+
+def collect_set(procs):
+    """Wait for the exporting processes ``procs`` (``set_process``):
+    each tier's export + compile seconds as the processes print them,
+    each process's wall seconds, and each int8 tier's ``aten._int_mm``
+    nodes and quantized convs.  A failed process raises with its
+    output."""
+    import re
+    import subprocess
+
+    compile_s, wall_s, int_mm, failed = {}, {}, {}, []
+    for names, proc, t0, log_path in procs:
         try:
-            text, _ = proc.communicate(timeout=900)
+            proc.wait(timeout=900)
         except subprocess.TimeoutExpired:
             proc.kill()
-            text, _ = proc.communicate()
+            proc.wait()
         wall_s[names] = time.perf_counter() - t0
-        for n, s in re.findall(r"\[(\w+)\] step\.pt2 for \S+ written in "
-                               r"([0-9.]+) s", text):
-            compile_s[n] = float(s)
+        with open(log_path) as f:
+            text = f.read()
+        for n, sec in re.findall(r"\[(\w+)\] step\.pt2 for \S+ written in "
+                                 r"([0-9.]+) s", text):
+            compile_s[n] = float(sec)
+        for n, nodes, convs in re.findall(
+                r"\[(\w+)\] .* (\d+) aten\._int_mm nodes, (\d+) quantized "
+                r"convs", text):
+            int_mm[n] = (int(nodes), int(convs))
         if proc.returncode != 0 or set(names) - set(compile_s):
-            failed.append(f"make_model_set --models {' '.join(names)} "
-                          f"(exit {proc.returncode}):\n{text[-4000:]}")
+            failed.append(f"{' + '.join(names)} (exit {proc.returncode}):"
+                          f"\n{text[-4000:]}")
     if failed:
-        raise AssertionError("\n".join(failed))
-    return compile_s, wall_s
+        raise AssertionError("model set: a process failed: "
+                             + "\n".join(failed))
+    return compile_s, wall_s, int_mm
+
+
+def stop_processes(procs):
+    """Kill whichever of the exporting processes ``procs`` still run."""
+    for _, proc, _, _ in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def host_pattern(h, w):
@@ -2396,11 +2504,9 @@ def native_obs(torch, host, set_dir, engines, out_dir):
         os.symlink(os.path.join(set_dir, name), os.path.join(view, name))
     out = os.path.join(out_dir, "obs_out")
     os.makedirs(out)
-    env = dict(os.environ, JOSHUPSCALE_TORCH_AOTI="1")
-    env.pop("JOSHUPSCALE_TORCH_DEVICE", None)
     proc = subprocess.run([os.path.join(host, "fake_obs_host"), view, out],
-                          env=env, capture_output=True, text=True,
-                          timeout=600)
+                          env=repo_env(aoti=True), capture_output=True,
+                          text=True, timeout=600)
     if (proc.returncode != 0 or "fake obs host OK" not in proc.stdout
             or "AOTInductor engine loaded" not in proc.stderr):
         raise AssertionError(f"fake_obs_host failed (exit "
@@ -2459,24 +2565,14 @@ def native_installed(host, out_dir, package, frames_path, want):
                              "frames differ from the build tree's")
 
 
-def native_tier(torch, name, package, frames, device, host, frames_path):
-    """One tier of the set on the card: a profiled run of its loaded
-    ``step.pt2`` must launch the tier's K1 (``NATIVE_TIERS``) + 1 K2,
-    counted by kernel name in the trace; its frames and float state
-    against ``Engine``'s over ``NATIVE_CHECKED`` frames
-    (``native_step_check``; ``Engine``'s frames must not be clipped
-    flat); the Python-free ``upscale_cli`` synchronous on the same frames
-    within the card-vs-CPU gate of ``Engine.process``.  Returns the
-    results, ``Engine``'s frames and the engine (reset)."""
-    from joshupscale_torch.export.package import (
-        load_aoti_step,
-        load_package,
-        state_leaves,
-    )
-    from joshupscale_torch.runtime.engine import Engine
+def native_trace(torch, name, step, model, k1_per_frame, frames, device):
+    """A profiled run of the loaded artifact ``step`` must launch
+    ``k1_per_frame`` K1 + 1 K2, counted by kernel name in the trace
+    (``counted_session``); the int8 products are counted and every
+    kernel's time summed by part too.  Returns the counts, the device ms
+    a frame, the parts and the int8 products."""
+    from joshupscale_torch.export.package import state_leaves
 
-    model, params = load_package(package)
-    step = load_aoti_step(package)
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     state = state_leaves(model.init_state(1, device=device))
     traced = {}
@@ -2492,20 +2588,39 @@ def native_tier(torch, name, package, frames, device, host, frames_path):
 
     with torch.no_grad():
         step(dev_frame, *state)
-    expected = (NATIVE_TIERS[name], 1)
+    expected = (k1_per_frame, 1)
     launches = counted_session(f"native {name}", count, expected)
     parts = {}
     for g, e in zip(traced["groups"], traced["events"]):
         parts[g] = parts.get(g, 0.0) + e["dur"] / 1e3
     device_ms = sum(parts.values())
+    gemms = traced["groups"].count(INT8_GEMM)
     log(f"native {name}: one run of the loaded artifact launches "
-        f"{launches[0]} K1 + {launches[1]} K2 (kernel names in the trace), "
-        f"{len(traced['events'])} device events, device {device_ms:.3f} ms, "
-        f"by part: " + ", ".join(f"{g} {v:.3f}" for g, v in sorted(
-            parts.items(), key=lambda kv: -kv[1])))
+        f"{launches[0]} K1 + {launches[1]} K2 and {gemms} int8 products "
+        f"(kernel names in the trace), {len(traced['events'])} device "
+        f"events, device {device_ms:.3f} ms, by part: " + ", ".join(
+            f"{g} {v:.3f}" for g, v in sorted(parts.items(),
+                                              key=lambda kv: -kv[1])))
     if launches != expected:
         raise AssertionError(f"native {name}: the artifact must launch "
                              f"{expected[0]} K1 + 1 K2")
+    return {"launches": launches, "device_ms": device_ms, "parts": parts,
+            "int8_gemms": gemms}
+
+
+def native_check(torch, name, package, step, model, params, frames, device,
+                 host, frames_path):
+    """The loaded artifact ``step`` of the package at ``package`` against
+    ``Engine`` on ``model`` and ``params``: frames and float state over
+    ``NATIVE_CHECKED`` frames (``native_step_check``; ``Engine``'s frames
+    must not be clipped flat), then the Python-free ``upscale_cli``
+    synchronous on the same frames within the card-vs-CPU gate of
+    ``Engine.process``.  Untimed but for the CLI's own frame loop
+    (``cli_s``), which serves as the short run of a timing only where no
+    other process runs.  Returns the results, ``Engine``'s frames, the
+    engine (reset) and the CLI's frames."""
+    from joshupscale_torch.runtime.engine import Engine
+
     engine = Engine(model, params, device=device)
     *step_diff, ref = native_step_check(
         torch, f"native {name}", step, engine, frames[:NATIVE_CHECKED],
@@ -2515,123 +2630,285 @@ def native_tier(torch, name, package, frames, device, host, frames_path):
         raise AssertionError(f"native {name}: Engine's output mostly "
                              f"clipped ({inside:.4f} inside): the check is "
                              f"trivial")
-    got, _ = native_cli(host, package, frames_path, NATIVE_CHECKED, True,
-                        False)
+    got, cli_s = native_cli(host, package, frames_path, NATIVE_CHECKED, True,
+                            False)
     cli_diff = card_vs_cpu(f"native {name} upscale_cli aoti",
                            f"{NATIVE_CHECKED} frames", got, ref,
                            against="Engine.process")
     engine.reset()
     size_mb = os.path.getsize(os.path.join(package, "step.pt2")) / 2**20
-    return {"launches": launches, "device_ms": device_ms,
-            "step_diff": step_diff, "cli_diff": cli_diff,
+    return {"step_diff": step_diff, "cli_diff": cli_diff, "cli_s": cli_s,
             "size_mb": size_mb, "inside": inside}, ref, engine, got
 
 
-def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms):
+# The int8 tiers as Python-free sets for the card: package directory ->
+# (the phase_int8 path it serves, its architecture, calibrated scales).
+NATIVE_INT8 = {"int8_quality": ("int8 quality", "quality", False),
+               "int8_quality_calibrated": ("int8 quality calibrated",
+                                           "quality", True),
+               "int8_ps2_style": ("int8 ps2_style", "ps2_style", False)}
+# Its exporting processes (``export_int8_tiers``), beside the
+# make_model_set processes.  The calibrated tier reuses its process's
+# kernels of the first; one process for all three was the longest part
+# of the set (its exports run one after the other: 346.6 s alone on an
+# H100's host, against 163-188 s for each float process).
+NATIVE_INT8_PROCESSES = (("int8_quality", "int8_quality_calibrated"),
+                         ("int8_ps2_style",))
+INT8_GEMM = "int8 product (_int_mm)"
+
+
+def int8_tier(torch, name, seed, ranges):
+    """The int8 tier ``name`` of ``NATIVE_INT8`` as ``phase_int8`` serves
+    it: ``(config, built entry, int8 params)``, the params
+    ``quantize_params_int8`` of the seeded float params (``ranges``, the
+    card's ``calibrate`` map, where the tier is calibrated)."""
+    from joshupscale_torch.export.quantize import quantize_params_int8
+    from joshupscale_torch.models.registry import create_models
+
+    _, arch, calibrated = NATIVE_INT8[name]
+    config = quality_config() if arch == "quality" else ps2_config(arch)
+    built = create_models(config, seed=seed)["inference"]
+    params = seeded_params(torch, built, seed)
+    return config, built, quantize_params_int8(
+        params, ranges=ranges if calibrated else None)
+
+
+def export_int8_tiers(out: str, seed: str, ranges_path: str,
+                      *names: str) -> int:
+    """An int8 export process (``python -c``, ``start_int8_export``):
+    the packages of the ``NATIVE_INT8`` tiers ``names`` under ``out``
+    with their ``step.pt2`` sets compiled for the card
+    (``save_package(..., export_aoti=True)`` of the int8 params), one
+    after the other; prints each tier's export + compile seconds and its
+    graph's ``aten._int_mm`` nodes beside its quantized convs."""
+    import torch
+
+    from joshupscale_torch.export.package import save_package
+    from joshupscale_torch.export.quantize import quantized_convs
+
+    with open(ranges_path) as f:
+        ranges = json.load(f)
+    for name in names:
+        config, built, params = int8_tier(torch, name, int(seed), ranges)
+        built.params = params
+        t0 = time.perf_counter()
+        program = save_package(os.path.join(out, name), config, built,
+                               export_aoti=True)
+        seconds = time.perf_counter() - t0
+        nodes = sum(1 for n in program.graph.nodes
+                    if n.op == "call_function"
+                    and str(n.target) == "aten._int_mm.default")
+        print(f"[{name}] step.pt2 for cuda written in {seconds:.1f} s; "
+              f"{nodes} aten._int_mm nodes, {quantized_convs(params)} "
+              f"quantized convs", flush=True)
+    return 0
+
+
+def native_refusal(host, package, frames_path):
+    """The embedded-Python backend on an int8 package: ``load_package``
+    takes float params only, so the host must fail with ``error:`` and
+    the parameter mismatch (as the reference's ``NativeEngine`` raises).
+    Returns the host's error line."""
+    import subprocess
+
+    proc = subprocess.run([os.path.join(host, "upscale_cli"), package,
+                           frames_path, os.devnull, "1"], env=repo_env(),
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stderr.splitlines() if "error:" in ln]
+    if (proc.returncode == 0 or not lines
+            or "parameter mismatch" not in proc.stderr):
+        raise AssertionError(f"native int8: the embedded-Python backend "
+                             f"did not refuse the int8 package (exit "
+                             f"{proc.returncode}):\n{proc.stderr[-3000:]}")
+    return lines[-1].strip()
+
+
+def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
+                 int8):
     """Native serving over the port: the C++ host
-    (``joshupscale_torch/native``, built here; the op library was built
-    before the kernels' first launch, ``ops_build_s``) and the OBS model
-    set on the Python-free backend.  ``make_model_set`` writes the four
-    tiers at full width (270x480, bf16) with their ``step.pt2`` sets
-    compiled on the card (``write_model_set``: compile seconds a tier and
-    the package sizes printed), each tier from a ``--weights`` npz of
-    seeded params (``tier_weights``; ``model_psp_fast``'s flow head scaled
-    to large flows).  Each tier is checked by ``native_tier``: its
-    artifact's K1 + K2 in a trace, frames and float state against
-    ``Engine``'s, ``upscale_cli`` Python-free against ``Engine.process``.
-    Then the fake OBS host over the set (``native_obs``), the installed
-    host with the build trees moved away (``native_installed``), and on
-    the quality tier ``model_psp`` the backends' timing:
-    ``upscale_cli`` on moving-pattern frames, the embedded-Python backend
-    bit for bit with ``Engine.process``, the Python-free backend within
-    the card-vs-CPU gate, each synchronous and ``--pipeline``.  A frame's
-    time for each backend and mode is the difference quotient of a short
-    and a long run's frame loops as the CLI times them (``NATIVE_RUNS``),
-    so loading and the first frames' warm-up cancel; printed beside
-    ``engine_ms``, ``Engine.process``'s median on the quality tier
-    (``phase_times``, before any profiler session).  The Python-free
-    backend's synchronous time must be at least the artifact's device
-    time a frame in the trace."""
+    (``joshupscale_torch/native``; the op library was built before the
+    kernels' first launch, ``ops_build_s``), the OBS model set and the
+    int8 tiers on the Python-free backend.
+
+    Exports: ``make_model_set`` writes the four float tiers at full
+    width (270x480, bf16) with their ``step.pt2`` sets compiled on the
+    card, each tier from a ``--weights`` npz of seeded params
+    (``tier_weights``; ``model_psp_fast``'s flow head scaled to large
+    flows), in two processes; beside them ``export_int8_tiers`` writes
+    the three int8 tiers of ``phase_int8`` (``int8``, its results: the
+    calibrated tier's ranges from the card's ``calibrate``) in two more
+    (``NATIVE_INT8_PROCESSES``); the host builds beside them (its build
+    time is taken there).  While the int8 processes still run, only
+    untimed checks run here: each float tier's artifact against
+    ``Engine`` and through ``upscale_cli`` (``native_check``), the fake
+    OBS host over the set (``native_obs``) and the installed host with
+    the build trees moved away (``native_installed``).  Once every
+    export has ended: each artifact's trace (``native_trace``: K1 + K2,
+    0 + 1 on the int8 tiers with their int8 products, device time by
+    part), the float tiers' first, before any int8 artifact runs in this
+    process; the int8 tiers' graphs' ``aten._int_mm`` nodes against
+    their quantized convs and their checks; the embedded-Python
+    backend's refusal of an int8 package (``native_refusal``); and the
+    timings through ``upscale_cli`` on moving-pattern frames: on the
+    quality tier ``model_psp`` the embedded-Python backend (bit for bit
+    with ``Engine.process``) and the Python-free one (within the
+    card-vs-CPU gate), on ``int8 quality`` the Python-free one, each
+    synchronous and ``--pipeline``.  A frame's time for each backend and
+    mode is the difference quotient of a short and a long run's frame
+    loops as the CLI times them (``NATIVE_RUNS``), so loading and the
+    first frames' warm-up cancel; printed beside ``Engine.process``'s
+    median (``engine_ms`` on quality, from ``phase_times``; the int8
+    tier's from ``phase_int8``).  The Python-free backend's synchronous
+    time must be at least the artifact's device time a frame in the
+    trace."""
     from joshupscale_torch import native
+    from joshupscale_torch.export.package import load_aoti_step, load_package
 
     started = time.perf_counter()
-    t0 = time.perf_counter()
-    host = str(native.build())
-    host_s = time.perf_counter() - t0
-    log(f"native: host build (cmake + ninja) {host_s:.1f} s, op library "
-        f"build {ops_build_s:.1f} s")
-    weights = {n: os.path.join(out_dir, f"{n}_weights.npz")
-               for n in NATIVE_TIERS}
-    flow = None
-    for n, path in weights.items():
-        flow = tier_weights(torch, n, seed, device, path) or flow
     set_dir = os.path.join(out_dir, "model_set")
-    compile_s, wall_s = write_model_set(set_dir, weights, seed)
-    log("native set: make_model_set wrote the four tiers for the card: "
-        + "; ".join(f"process {' + '.join(names)}: "
-                    + ", ".join(f"{n} {compile_s[n]:.1f} s" for n in names)
-                    + f", {wall_s[names]:.1f} s in all"
-                    for names in NATIVE_SET_PROCESSES))
+    int8_dir = os.path.join(out_dir, "int8_set")
+    # The int8 exports are the longest; they need no weights file.
+    int8_procs = start_int8_export(int8_dir, seed,
+                                   int8["calibration"]["ranges"], out_dir)
+    float_procs = []
+    try:
+        weights = {n: os.path.join(out_dir, f"{n}_weights.npz")
+                   for n in NATIVE_TIERS}
+        flow = None
+        for n, path in weights.items():
+            flow = tier_weights(torch, n, seed, device, path) or flow
+        float_procs = start_model_set(set_dir, weights, seed, out_dir)
+        t0 = time.perf_counter()
+        host = str(native.build())
+        host_s = time.perf_counter() - t0
+        log(f"native: host build (cmake + ninja, beside the four exporting "
+            f"processes) {host_s:.1f} s, op library build "
+            f"{ops_build_s:.1f} s")
+        compile_s, wall_s, _ = collect_set(float_procs)
+        log("native set: make_model_set wrote the four tiers for the card, "
+            "two processes side by side (and two int8 processes): "
+            + "; ".join(f"process {' + '.join(names)}: " + ", ".join(
+                f"{n} {compile_s[n]:.1f} s" for n in names)
+                + f", {wall_s[names]:.1f} s in all" for names in wall_s))
 
-    frames = frames_for(NATIVE_RUNS[1], seed)
-    frames_path = os.path.join(out_dir, "native_frames.raw")
-    frames.tofile(frames_path)
-    tiers, engines = {}, {}
+        frames = frames_for(NATIVE_RUNS[1], seed)
+        frames_path = os.path.join(out_dir, "native_frames.raw")
+        frames.tofile(frames_path)
+        tiers, steps, engines = {}, {}, {}
+        for name in NATIVE_TIERS:
+            package = os.path.join(set_dir, name)
+            model, params = load_package(package)
+            steps[name] = (load_aoti_step(package), model)
+            tiers[name], ref, engine, aoti_out = native_check(
+                torch, name, package, steps[name][0], model, params, frames,
+                device, host, frames_path)
+            tiers[name]["compile_s"] = compile_s[name]
+            if name in ("model_psp", "model_ps2"):
+                engines[name] = engine
+            if name == "model_psp":
+                quality_ref, quality_aoti = ref, aoti_out
+            del engine
+        obs_diff = native_obs(torch, host, set_dir, engines, out_dir)
+        engines.clear()
+        native_installed(host, out_dir, os.path.join(set_dir, "model_psp"),
+                         frames_path, quality_aoti)
+        t0 = time.perf_counter()
+        int8_s, int8_wall, int_mm = collect_set(int8_procs)
+    finally:
+        stop_processes(float_procs + int8_procs)
+    compile_s.update(int8_s)
+    wall_s.update(int8_wall)
+    log(f"native int8 set: export_int8_tiers wrote the int8 tiers for the "
+        f"card, two processes beside the model set's (the checks above "
+        f"ran {time.perf_counter() - t0:.1f} s before the last ended): "
+        + "; ".join(f"process {' + '.join(names)}: " + ", ".join(
+            f"{n} {int8_s[n]:.1f} s" for n in names)
+            + f", {int8_wall[names]:.1f} s in all" for names in int8_wall))
+
     for name in NATIVE_TIERS:
-        package = os.path.join(set_dir, name)
-        tiers[name], ref, engine, aoti_out = native_tier(
-            torch, name, package, frames, device, host, frames_path)
-        tiers[name]["compile_s"] = compile_s[name]
-        if name in ("model_psp", "model_ps2"):
-            engines[name] = engine
-        if name == "model_psp":
-            quality_ref, quality_aoti = ref, aoti_out
-        del engine
-    obs_diff = native_obs(torch, host, set_dir, engines, out_dir)
-    engines.clear()
-    native_installed(host, out_dir, os.path.join(set_dir, "model_psp"),
-                     frames_path, quality_aoti)
+        step, model = steps.pop(name)
+        tiers[name].update(native_trace(torch, name, step, model,
+                                        NATIVE_TIERS[name], frames, device))
+        del step
+    for d, (name, _, _) in NATIVE_INT8.items():
+        _, built, params = int8_tier(torch, d, seed,
+                                     int8["calibration"]["ranges"])
+        nodes, convs = int_mm[d]
+        log(f"native {name}: the exported graph holds {nodes} "
+            f"aten._int_mm nodes for {convs} quantized convs")
+        if nodes != convs:
+            raise AssertionError(f"native {name}: {nodes} int8 products in "
+                                 f"the graph, {convs} quantized convs")
+        package = os.path.join(int8_dir, d)
+        step = load_aoti_step(package)
+        tiers[name] = native_trace(torch, name, step, built.obj, 0, frames,
+                                   device)
+        checked, ref, engine, _ = native_check(
+            torch, name, package, step, built.obj, params, frames, device,
+            host, frames_path)
+        tiers[name].update(checked, compile_s=compile_s[d], int_mm=nodes)
+        if d == "int8_quality":
+            int8_ref = ref
+        del engine, built, params, step
+    int8_package = os.path.join(int8_dir, "int8_quality")
+    refusal = native_refusal(host, int8_package, frames_path)
+    log(f"native int8 quality: the embedded-Python backend refuses the "
+        f"package, as the reference's NativeEngine does: {refusal}")
 
-    package = os.path.join(set_dir, "model_psp")
     ms, check = {}, {}
-    for aoti in (False, True):
-        backend = "aoti" if aoti else "python"
-        for pipeline in (False, True):
-            mode = "pipelined" if pipeline else "sync"
+    runs = [("python", "model_psp", m) for m in ("sync", "pipelined")]
+    runs += [("aoti", "model_psp", m) for m in ("sync", "pipelined")]
+    runs += [("aoti", "int8 quality", m) for m in ("sync", "pipelined")]
+    for backend, tier, mode in runs:
+        aoti, pipeline = backend == "aoti", mode == "pipelined"
+        package, ref = ((os.path.join(set_dir, "model_psp"), quality_ref)
+                        if tier == "model_psp" else (int8_package, int8_ref))
+        if tier != "model_psp" and not pipeline:
+            # native_check's run of the same frames, synchronous, taken
+            # after every export had ended.
+            got, t_short = None, tiers[tier]["cli_s"]
+        else:
             got, t_short = native_cli(host, package, frames_path,
                                       NATIVE_RUNS[0], aoti, pipeline)
-            _, t_long = native_cli(host, package, frames_path,
-                                   NATIVE_RUNS[1], aoti, pipeline,
-                                   keep=False)
-            ms[backend, mode] = (t_long - t_short) / (
-                NATIVE_RUNS[1] - NATIVE_RUNS[0]) * 1e3
-            if not aoti:
-                exact = bool(np.array_equal(got, quality_ref))
-                log(f"native python {mode}: {NATIVE_CHECKED} frames bit for "
-                    f"bit with Engine.process: {exact}")
-                if not exact:
-                    raise AssertionError("native: the embedded-Python "
-                                         "backend differs from Engine")
-                check[backend, mode] = 0
-            else:
-                check[backend, mode] = card_vs_cpu(
-                    f"native aoti {mode}", f"{NATIVE_CHECKED} frames", got,
-                    quality_ref, against="Engine.process")
-    device_ms = tiers["model_psp"]["device_ms"]
+        _, t_long = native_cli(host, package, frames_path, NATIVE_RUNS[1],
+                               aoti, pipeline, keep=False)
+        ms[tier, backend, mode] = (t_long - t_short) / (
+            NATIVE_RUNS[1] - NATIVE_RUNS[0]) * 1e3
+        if got is None:
+            continue
+        if not aoti:
+            exact = bool(np.array_equal(got, ref))
+            log(f"native python {mode}: {NATIVE_CHECKED} frames bit for "
+                f"bit with Engine.process: {exact}")
+            if not exact:
+                raise AssertionError("native: the embedded-Python "
+                                     "backend differs from Engine")
+            check[tier, backend, mode] = 0
+        else:
+            check[tier, backend, mode] = card_vs_cpu(
+                f"native {tier} aoti {mode}", f"{NATIVE_CHECKED} frames",
+                got, ref, against="Engine.process")
     seconds = time.perf_counter() - started
-    log(f"native: ms a frame on model_psp ({NATIVE_RUNS[1]}- vs "
-        f"{NATIVE_RUNS[0]}-frame runs of upscale_cli, the CLI's own "
-        f"frame-loop clock): " + ", ".join(f"{b} {m} {v:.3f}" for (b, m), v
-                                           in ms.items())
-        + f"; Engine.process median {engine_ms:.3f} ms; artifact device "
-        f"{device_ms:.3f} ms a frame; phase {seconds:.1f} s")
-    if ms["aoti", "sync"] < device_ms:
-        raise AssertionError("native: the Python-free backend's synchronous "
-                             "ms a frame is below the artifact's device time "
-                             "a frame: the timing is at fault")
+    int8_ms = int8["int8 quality"]["frame_ms"]
+    for tier, e_ms in (("model_psp", engine_ms), ("int8 quality", int8_ms)):
+        device_ms = tiers[tier]["device_ms"]
+        log(f"native: ms a frame on {tier} ({NATIVE_RUNS[1]}- vs "
+            f"{NATIVE_RUNS[0]}-frame runs of upscale_cli, the CLI's own "
+            f"frame-loop clock): " + ", ".join(
+                f"{b} {m} {v:.3f}" for (t, b, m), v in ms.items()
+                if t == tier)
+            + f"; Engine.process median {e_ms:.3f} ms; artifact device "
+            f"{device_ms:.3f} ms a frame")
+        if ms[tier, "aoti", "sync"] < device_ms:
+            raise AssertionError(f"native {tier}: the Python-free backend's "
+                                 f"synchronous ms a frame is below the "
+                                 f"artifact's device time a frame: the "
+                                 f"timing is at fault")
+    log(f"native: phase {seconds:.1f} s")
     return {"host_s": host_s, "tiers": tiers, "wall_s": wall_s,
             "mean_flow": flow, "obs_diff": obs_diff, "ms": ms,
-            "engine_ms": engine_ms, "max_diff": check, "seconds": seconds}
+            "engine_ms": engine_ms, "int8_engine_ms": int8_ms,
+            "max_diff": check, "refusal": refusal, "seconds": seconds}
 
 
 DOOR_EXAMPLES = 8  # pair examples written to the TFRecord file
@@ -3185,6 +3462,11 @@ def main() -> int:
     from joshupscale_torch.tools.timing import card_line
 
     started = time.perf_counter()
+
+    def mark(what):
+        log(f"chip_smoke: {what} done at "
+            f"{time.perf_counter() - started:.1f} s")
+
     device = resolve_device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA "
@@ -3227,24 +3509,37 @@ def main() -> int:
     ps2 = phase_ps2(torch, args.seed, device, paths)
     variants = phase_variants(torch, args.seed, device, paths)
     int8 = phase_int8(torch, args.seed, device, paths)
+    mark("serving paths, runtime, PS2 tiers, options, int8")
     batched = {}
     par = phase_parallel(torch, args.seed, device, batched)
     spatial = phase_spatial(torch, args.seed, device)
     k1_n2, lib_n2 = time_k1(torch, device, 64, n=2)
+    mark("parallel, spatial, K1 at N = 2")
     with tempfile.TemporaryDirectory() as train_dir:
         train = phase_train(torch, args.seed, device, train_dir)
         gan = phase_gan(torch, args.seed, device, train_dir)
         doors = phase_doors(torch, args.seed, device, train_dir)
         mesh = phase_mesh(torch, args.seed, device, train_dir)
+        mark("train, gan, doors, mesh")
+        paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
+        paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
+        paths["doors export"] = (*doors.pop("engine"), K1_PER_FRAME, 1)
+        probes, p1_launches, p2_launches = phase_conv_probe(
+            torch, device,
+            (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
+            times["lib_ms"])
+        # Before phase_native: on an H100 with torch 2.11 (twice) the
+        # replayed graphs' profiles lost 1-2 K1 records of 204 in every
+        # session once the int8 artifacts had been loaded and profiled in
+        # this process (recount_after_native looks again).
+        after = phase_profiled(torch, paths, ps2, device, args.profile,
+                               batched)
+        mark("conv probe, profiled replays")
         nat = phase_native(torch, args.seed, device, train_dir, ops_build_s,
-                           times["frame_ms"])
-    paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
-    paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
-    paths["doors export"] = (*doors.pop("engine"), K1_PER_FRAME, 1)
-    probes, p1_launches, p2_launches = phase_conv_probe(
-        torch, device, (times["k1"]["conv_1"][0], times["k1"]["conv_2"][0]),
-        times["lib_ms"])
-    after = phase_profiled(torch, paths, ps2, device, args.profile, batched)
+                           times["frame_ms"], int8)
+        mark("native")
+    recount = recount_after_native(torch, "quality", *paths["quality"],
+                                   device)
     train_prof = profile_train(
         torch, args.seed, device,
         {d: train[d]["step_ms"] for d in ("float32", "bfloat16")})
@@ -3255,6 +3550,7 @@ def main() -> int:
                                 args.seed, device))
     with tempfile.TemporaryDirectory() as fit_dir:
         fit_kernels, _ = profile_fit(torch, args.seed, device, fit_dir)
+    mark("training profiles")
     paths.clear()
     batched.clear()
 
@@ -3264,6 +3560,8 @@ def main() -> int:
     k1_ms = (c1 + c2) / 2
     (d1, q1, e1, _), (d2, q2, e2, ey2) = (ps2["k1_c48"]["conv_1"],
                                           ps2["k1_c48"]["conv_2"])
+    (f1, r1, g1, _), (f2, r2, g2, gy2) = (ps2["k1_c32"]["conv_1"],
+                                          ps2["k1_c32"]["conv_2"])
     by_path = {"quality": (k1_launches, k2_launches),
                **{t: (ps2[t]["k1"], ps2[t]["k2"])
                   for t in ("ps2_style", "ps2_fast")},
@@ -3306,6 +3604,13 @@ def main() -> int:
                  "max_abs_err": k1_err[48],
                  "share_of_bf16_peak": k1_flops(1, H, W, 48)
                  / ((d1 + d2) / 2 * 1e-3) / PEAK_BF16_FLOPS},
+         "c32": {"ms": (f1 + f2) / 2, "conv_1_ms": f1, "conv_2_ms": f2,
+                 "plain_ms": (r1 + r2) / 2, "bound_ms": (g1 + g2) / 2,
+                 "bound_by": gy2, "library_ms": ps2["lib_ms_c32"],
+                 "max_abs_err": k1_err[32],
+                 "share_of_bf16_peak": k1_flops(1, H, W, 32)
+                 / ((f1 + f2) / 2 * 1e-3) / PEAK_BF16_FLOPS,
+                 "fraction_of_bound": (g1 + g2) / (f1 + f2)},
          "n2": {"shape": [2, H, W, 64], "ms": (n1 + n2) / 2,
                 "conv_1_ms": n1, "conv_2_ms": n2, "plain_ms": (nq1 + nq2) / 2,
                 "bound_ms": (nb1 + nb2) / 2, "bound_by": nby2,
@@ -3426,24 +3731,40 @@ def main() -> int:
         f"{mesh['frames_max_diff']} against the one-process params; spawn "
         f"{mesh['spawn_s']:.1f} s; phase {mesh['seconds']:.1f} s on {card}")
     for n, t in nat["tiers"].items():
-        log(f"native {n} (270x480 bf16, written by make_model_set): "
+        is_int8 = "int_mm" in t
+        log(f"native {n} (270x480 bf16, written by "
+            f"{'export_int8_tiers' if is_int8 else 'make_model_set'}): "
             f"step.pt2 {t['size_mb']:.1f} MiB compiled in "
             f"{t['compile_s']:.1f} s; {t['launches'][0]} K1 + "
-            f"{t['launches'][1]} K2 in the artifact, device "
-            f"{t['device_ms']:.3f} ms a frame; against Engine: in process "
-            f"u8 max {t['step_diff'][0]}, state max {t['step_diff'][1]:.3f} "
-            f"u8 steps, upscale_cli aoti u8 max {t['cli_diff']}"
+            f"{t['launches'][1]} K2 in the artifact"
+            + (f", {t['int_mm']} aten._int_mm nodes (= quantized convs), "
+               f"{t['int8_gemms']} int8 products in the trace"
+               if is_int8 else "")
+            + f"; device {t['device_ms']:.3f} ms a frame ("
+            + ", ".join(f"{g} {v:.3f}" for g, v in sorted(
+                t["parts"].items(), key=lambda kv: -kv[1]))
+            + f"); against Engine: in process u8 max {t['step_diff'][0]}, "
+            f"state max {t['step_diff'][1]:.3f} u8 steps, upscale_cli aoti "
+            f"u8 max {t['cli_diff']}"
             + (f"; mean |flow| {nat['mean_flow']:.3f} px"
                if n == "model_psp_fast" else "") + f" on {card}")
-    log(f"native (host build {nat['host_s']:.1f} s; set written by two "
-        f"processes in {max(nat['wall_s'].values()):.1f} s): ms a frame on "
-        f"model_psp through upscale_cli: " + ", ".join(
-            f"{b} {m} {v:.3f}" for (b, m), v in nat["ms"].items())
-        + f" beside Engine.process {nat['engine_ms']:.3f} and the "
-        f"artifact's device time {nat['tiers']['model_psp']['device_ms']:.3f}"
-        f"; aoti u8 max {max(nat['max_diff'].values())} against Engine; "
-        f"fake OBS host over the set u8 max {nat['obs_diff']}; phase "
-        f"{nat['seconds']:.1f} s on {card}")
+    walls = nat["wall_s"]
+    log(f"native (host build {nat['host_s']:.1f} s; model set written in "
+        f"{max(walls[k] for k in NATIVE_SET_PROCESSES):.1f} s, int8 tiers "
+        f"in {max(walls[k] for k in NATIVE_INT8_PROCESSES):.1f} s, all four "
+        f"processes side by side): ms a frame through upscale_cli: "
+        + "; ".join(
+            f"{t} {b} {m} {v:.3f}" for (t, b, m), v in nat["ms"].items())
+        + f"; beside Engine.process {nat['engine_ms']:.3f} (model_psp), "
+        f"{nat['int8_engine_ms']:.3f} (int8 quality) and the artifacts' "
+        f"device time {nat['tiers']['model_psp']['device_ms']:.3f}, "
+        f"{nat['tiers']['int8 quality']['device_ms']:.3f}; aoti u8 max "
+        f"{max(nat['max_diff'].values())} against Engine; fake OBS host "
+        f"over the set u8 max {nat['obs_diff']}; embedded Python refuses "
+        f"int8: {nat['refusal']}; phase {nat['seconds']:.1f} s on {card}")
+    log(f"quality after phase_native: replays counted {recount[0]:g} K1 + "
+        f"{recount[1]:g} K2 a step in one profiler session "
+        f"(informational; phase_profiled's check ran before) on {card}")
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all")
     log(card)
     log(json.dumps({"kernels": kernels}))

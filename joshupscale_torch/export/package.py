@@ -49,13 +49,17 @@ def save_package(path: str, model_config: Dict[str, Any], built: BuiltModel,
                  inference_name: str = "inference",
                  export_stablehlo: bool = False, batch_size: int = 1,
                  export_aoti: bool = False,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None):
     """Write a package for a built inference model: ``model.yaml``
     (``model_config`` and ``inference_name``) and ``params.npz``.
 
     ``export_aoti`` also writes the Python-free serving set (module
     docstring): the step at ``batch_size``, compiled for ``device``
-    (``resolve_device``: by default the card; the CPU only if named).
+    (``resolve_device``: by default the card; the CPU only if named),
+    and returns its ``ExportedProgram`` (else None).  Any params serve,
+    the int8 tier's (``quantize_params_int8``) among them; such a
+    package is served by its set only, since ``load_package`` takes
+    float params.
     ``export_stablehlo`` asks for the reference's XLA program (StableHLO)
     for its PJRT runtime; it has no counterpart on CUDA and raises
     ``NotImplementedError``: its counterpart here is ``export_aoti``.
@@ -74,7 +78,9 @@ def save_package(path: str, model_config: Dict[str, Any], built: BuiltModel,
                        f)
     np.savez(os.path.join(path, "params.npz"), **to_flat_numpy(built.params))
     if export_aoti:
-        write_aoti_step(path, built.obj, built.params, batch_size, device)
+        return write_aoti_step(path, built.obj, built.params, batch_size,
+                               device)
+    return None
 
 
 def state_leaves(state: Dict[str, Any]) -> List[torch.Tensor]:
@@ -181,18 +187,31 @@ def write_serving_spec(path: str, model: InferenceModel,
 
 
 def write_aoti_step(path: str, model: InferenceModel, params: Dict[str, Any],
-                    batch_size: int = 1, device: DeviceLike = None) -> None:
+                    batch_size: int = 1, device: DeviceLike = None):
     """Write ``step.pt2``, ``step_spec.txt`` and ``state_init.bin`` into
-    the package at ``path`` (module docstring)."""
+    the package at ``path`` (module docstring); returns the
+    ``ExportedProgram`` that was compiled."""
     program = write_serving_spec(path, model, params, batch_size, device)
     step = os.path.join(path, STEP_FILE)
     if os.path.exists(step):
         os.remove(step)
+    with torch.no_grad(), torch._inductor.config.patch(inductor_options()):
+        torch._inductor.aoti_compile_and_package(program, package_path=step)
+    return program
+
+
+def inductor_options() -> Dict[str, Any]:
+    """Inductor's settings for the serving step: the host compiler (one
+    that links OpenMP, ``_build.host_cxx``), and float32 divisions
+    rounded as eager's are (IEEE, ``div_rn``).  Triton's own division is
+    approximate (``div.full``): on an H100 with torch 2.11 it put 3% of
+    near-tie quotients on the other side of the tie, where the int8
+    tier's quantization (``x / act_scale``, rounded half to even) must
+    give eager's levels."""
     from joshupscale_torch.kernels._build import host_cxx
 
-    with torch.no_grad(), torch._inductor.config.patch(
-            {"cpp.cxx": (host_cxx(),)}):
-        torch._inductor.aoti_compile_and_package(program, package_path=step)
+    return {"cpp.cxx": (host_cxx(),),
+            "eager_numerics.division_rounding": True}
 
 
 def _write_spec(path: str, model: InferenceModel, args, outs) -> None:

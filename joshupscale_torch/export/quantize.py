@@ -88,6 +88,16 @@ def quantize_params_int8(params, min_elements: int = 4096,
             for k, v in params.items()}
 
 
+def quantized_convs(params) -> int:
+    """The int8 convs of a param tree: its 4-D ``kernel_q`` leaves, one
+    ``torch._int_mm`` each (a deconv's 2-D int8 kernel is dequantized at
+    load instead)."""
+    if not isinstance(params, dict):
+        return 0
+    own = getattr(params.get("kernel_q"), "ndim", 0) == 4
+    return own + sum(quantized_convs(v) for v in params.values())
+
+
 def _sweep(model, params, frames: torch.Tensor, record, device) -> None:
     """Stream ``frames`` (T, N, H, W, 3) through the recurrent model on
     its calibration route (``prepare_params(calibration=True)``: batch

@@ -156,6 +156,25 @@ def _int_mm(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return out[:m] if m <= 16 else out
 
 
+def row_major(t: torch.Tensor) -> torch.Tensor:
+    """``t`` laid out row-major, as a view to another element size and a
+    window over its storage (``as_strided``) assume.  In eager that is
+    ``t.contiguous()``.  A traced tensor gets inductor's own prim, which
+    holds the buffer to that layout: inductor lays each intermediate
+    buffer out as it likes (on an H100 with torch 2.11 it laid the int8
+    conv's padded input out channels-first after a library conv, and its
+    view as 8-byte words failed to lower)."""
+    if not is_fake(t):
+        return t.contiguous()
+    import torch._inductor.inductor_prims  # noqa: F401  (the prim)
+
+    strides, step = [], 1
+    for size in reversed(t.shape):
+        strides.insert(0, step)
+        step *= size
+    return torch.ops.prims.inductor_force_stride_order(t, strides)
+
+
 def prepare_conv_int8(params):
     """Int8 conv params (``kernel_q`` OHWI, ``kernel_scale``, optional
     ``bias`` and ``act_scale``) -> ``conv2d_int8``'s, made once: the
@@ -227,12 +246,12 @@ def conv2d_int8(params, x: torch.Tensor) -> torch.Tensor:
     xp[:, p:p + h, p:p + w, :c].copy_(q)
     # im2col: each pixel's k*k taps side by side, moved as 8-byte words
     # (cin is a multiple of 8).
-    words = xp.view(torch.int64)
+    words = row_major(xp).view(torch.int64)
     sn, sh, sw, _ = words.stride()
     cols = torch.as_strided(words, (n, h, w, k, k, cin // 8),
                             (sn, sh, sw, sh, sw, 1))
-    cols = cols.reshape(n * h * w, k * k * cin // 8).view(torch.int8)
-    acc = _int_mm(cols, params["matrix_q"].t())
+    cols = row_major(cols.reshape(n * h * w, k * k * cin // 8))
+    acc = _int_mm(cols.view(torch.int8), params["matrix_q"].t())
     if acc.shape[1] != out_ch:
         acc = acc[:, :out_ch]
     scale = act_scale * params["kernel_scale"].float()
