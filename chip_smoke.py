@@ -31,8 +31,9 @@ package written by ``save_package``, then splits ``process`` into its
 parts and times ``process_async`` and ``Engine.benchmark``.  The int8
 tier (``quantize_params_int8``: 0 K1 + 1 K2 a frame) is driven and
 checked like the float paths on the quality tier with dynamic scales,
-with scales from ``calibrate`` (run on the card and on the CPU, the
-range maps compared) and on ``ps2_style``, timed, and held against the
+with scales from ``calibrate`` (run on the card; card and CPU range
+maps compared on the architecture cut to 2 res blocks a net) and on
+``ps2_style``, timed, and held against the
 float tier's frames (mean u8 difference and PSNR, informational).
 Multi-stream serving: ``ShardedEngine`` on the card with 2 and 4 streams
 (K1 at N = 2 and 4; checked against ``Engine(batch_size=2)`` and each
@@ -55,8 +56,15 @@ gradient), steps timed in float32 and bf16 (forward, backward,
 optimizer; peak memory), no kernel launched by a train step; then the
 trained params exported as a serving package (270x480, bf16) and served
 through ``create_runtime`` + ``Engine.process`` with the counts set to 0
-(68 K1 + 1 K2 a step), checked as the serving paths are.  The doors
-phase (``phase_doors``) follows the GAN phase: pair examples at the
+(68 K1 + 1 K2 a step), checked as the serving paths are.  The
+lifecycle phase (``phase_lifecycle``) follows the GAN phase: the
+model-quality tools of ``joshupscale_torch/tools/`` in this process
+(a synthetic set rendered from ``docs/learned_compare.png``,
+``bn_recalibrate`` on the FRVSR phase's checkpoint, ``eval_synth`` three
+ways and on the CPU, ``eval_serving_fullres`` at 270x480, ``drift_1000``
+at T = 1000 with its launches counted and stream against clip 0, a
+6-step full-width ``gan_soak``).  The doors
+phase (``phase_doors``) follows: pair examples at the
 capture size (10 LR 270x480 + 10 HR 1080x1920 PNG frames each) written
 with the port's TFRecord writer; the FRVSR train chain on them through
 ``MultiprocessLoader`` with 2 workers (held bit for bit against the
@@ -112,9 +120,11 @@ every host-clock timing of this process (a profiler session can leave
 the host launching more slowly; the quality step is timed once more
 after them, labelled): each path's replays counted by kernel and the
 PS2 steps' device time split by stage and kernel (before the native
-phase), the training steps' device time and ``fit``'s profiler
-window (``profile_fit``: 4 full-width bf16 FRVSR steps, steps 1..2
-traced; the trace must hold CUDA kernel events); after the native
+phase), the training steps' device time (the setups the training
+phases timed, kept warm) and ``fit``'s profiler window
+(``profile_fit``: 4 bf16 FRVSR steps of the timed setup, steps 1..2
+traced; the trace must hold CUDA kernel events, and gives the bf16
+FRVSR step's split); after the native
 phase one more session of the quality graph's replays is logged,
 informational (``recount_after_native``).  The end of each group of
 phases is logged with the script's elapsed time.  K1's and the
@@ -298,6 +308,36 @@ def quality_config() -> dict:
                            "num_filters": 64, "num_res_blocks": 10}, 64, 24)
 
 
+# A CPU reference that repeats what the tests hold against the JAX
+# package (calibrate's range map, VideoStream's seeks, the serving
+# options' and the int8 tiers' frames) runs on its architecture cut to
+# this many res blocks a net (``cut_depth``): at full depth the CPU side
+# took 18-31 s each for the first two on an H100's host, 4.5-6.5 s a
+# frame for an int8 tier.
+CPU_CHECK_BLOCKS = 2
+
+
+def cut_depth(config: dict, blocks: int = None) -> dict:
+    """``config`` with its resnets cut to ``blocks`` (default
+    ``CPU_CHECK_BLOCKS``) res blocks: the same layer kinds at the same
+    shapes (an autoencoder flow net has no res blocks and stays)."""
+    blocks = blocks or CPU_CHECK_BLOCKS
+    config = json.loads(json.dumps(config))
+    for entry in config.values():
+        if "num_res_blocks" in entry:
+            entry["num_res_blocks"] = min(entry["num_res_blocks"], blocks)
+    return config
+
+
+def cut_quality(torch, seed):
+    """The quality tier's entry cut to ``CPU_CHECK_BLOCKS`` res blocks a
+    net, with seeded params: ``(built, params)``."""
+    from joshupscale_torch.models.registry import create_models
+
+    built = create_models(cut_depth(quality_config()), seed=seed)["inference"]
+    return built, seeded_params(torch, built, seed)
+
+
 PS2_LADDERS = {"ps2_style": ([32, 64, 128, 256, 128, 64, 32], 64, 24),
                "ps2_fast": ([16, 32, 64, 128, 64, 32, 16], 48, 12)}
 
@@ -382,18 +422,43 @@ def all_kernels():
     return resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot
 
 
+# The card's idle time between a session's first replay and the counted
+# ones (``replay_kernels``): far longer than any gap inside a replay.
+REPLAY_GAP_S = 0.05
+
+
+def after_gap(events, gap_s=REPLAY_GAP_S / 2):
+    """The device events after the largest idle gap of the card's
+    timeline, if that gap is longer than ``gap_s``; else all of them."""
+    events = sorted(events, key=lambda e: e["ts"])
+    gaps = [(b["ts"] - (a["ts"] + a["dur"]), i + 1)
+            for i, (a, b) in enumerate(zip(events, events[1:]))]
+    gap, start = max(gaps, default=(0.0, 0))
+    return events[start:] if gap > gap_s * 1e6 else events
+
+
 def replay_kernels(torch, engine, dev_frame, n=3, trace_path=None):
     """The device events of ``n`` replayed steps under ``torch.profiler``
     (the CUDA graph's kernels, traced one by one; the trace is written
-    to ``trace_path`` if given) and K1's and K2's kernels per replay."""
+    to ``trace_path`` if given) and K1's and K2's kernels per replay.
+    The session replays once more first and idles ``REPLAY_GAP_S``
+    before the counted replays, whose events are those after that gap
+    (``after_gap``): on an H100 with torch 2.11 a session's first replay
+    could lose the records of its first kernels (the flow net's 20 K1,
+    in every one of 3 sessions of one graph), where the replays after it
+    kept all of theirs."""
 
     def replays():
+        engine.step(dev_frame)
+        torch.cuda.synchronize()
+        time.sleep(REPLAY_GAP_S)
         for _ in range(n):
             engine.step(dev_frame)
 
     for _ in range(2):
         engine.step(dev_frame)
     prof, events = profiled(torch, replays, trace_path)
+    events = after_gap(events)
     groups = [kernel_group(e["name"]) for e in events]
     per = (groups.count("K1 resblock_conv3x3") / n,
            groups.count("K2 d2s_display_u8") / n)
@@ -500,7 +565,7 @@ def recount_after_native(torch, name, engine, frames, k1_per_frame,
 
 def drive_path(torch, name, config, seed, device, k1_per_frame,
                k2_per_frame, n_frames=FRAMES, ref_frames=REF_FRAMES,
-               transform=None):
+               transform=None, cut=None):
     """One serving path at full frame: the launch counts set to 0, the
     engine built (warm-up steps and the capture of the frame graph) and
     ``n_frames`` frames through ``Engine.process``; the counts read and
@@ -508,7 +573,10 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     checked for synchronising calls; the first ``ref_frames`` frames
     held against the same engine on the CPU; replays held against eager
     steps.  ``transform`` makes the served params from the seeded float
-    ones (``built.params``), e.g. ``quantize_params_int8``."""
+    ones (``built.params``), e.g. ``quantize_params_int8``.  With
+    ``cut`` (the transform of the cut model's params, or ``True`` for
+    ``transform``) the CPU reference runs on the architecture cut by
+    ``cut_depth``, against an engine of the same on the card."""
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
 
@@ -564,10 +632,22 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     log(f"{name}: a replayed step and a display make no synchronising "
         f"call (torch.cuda.set_sync_debug_mode('error'))")
 
-    # The same engine on the CPU (plain versions), same params and frames.
-    cpu = Engine(built.obj, params, device="cpu")
+    # The same engine on the CPU (plain versions), same params and frames;
+    # with ``cut``, the cut architecture on both sides.
+    label, model, ref_params, card = name, built.obj, params, outs
+    if cut is not None:
+        small = create_models(cut_depth(config), seed=seed)["inference"]
+        model, ref_params = small.obj, seeded_params(torch, small, seed)
+        fn = transform if cut is True else cut
+        if fn is not None:
+            ref_params = fn(ref_params)
+        cut_engine = Engine(model, ref_params, device=device)
+        card = [cut_engine.process(f) for f in frames[:ref_frames]]
+        label = f"{name} (cut to {CPU_CHECK_BLOCKS} res blocks a net)"
+        del cut_engine
+    cpu = Engine(model, ref_params, device="cpu")
     for i in range(ref_frames):
-        card_vs_cpu(name, f"frame {i}", outs[i], cpu.process(frames[i]))
+        card_vs_cpu(label, f"frame {i}", card[i], cpu.process(frames[i]))
     check_replay(torch, name, engine, frames, device)
     log(f"{name}: phase took {time.perf_counter() - t0:.1f} s")
     return engine, frames, k1, k2, built
@@ -713,10 +793,12 @@ def phase_times(torch, engine, frames, device):
             **tf}
 
 
-def phase_runtime(torch, config, engine, built, frames, device, k2_ms):
+def phase_runtime(torch, config, engine, built, frames, device, k2_ms,
+                  seed):
     """The runtime around the engine on the quality tier: process_async
     and process_clip against streamed process (bit for bit), a
-    VideoStream on the card against the same stream on the CPU,
+    VideoStream on the card against the same stream on the CPU (on the
+    architecture cut to ``CPU_CHECK_BLOCKS`` res blocks a net),
     NativeEngine.process_bytes on a package written by save_package
     against Engine.process (bit for bit); then process split into its
     parts, process_async throughput at max_inflight 1, 2 and 3, and
@@ -742,23 +824,24 @@ def phase_runtime(torch, config, engine, built, frames, device, k2_ms):
         f"bit for bit ({len(clip)} frames each)")
 
     # One seek pattern on the card and on the CPU: warm-up lead-in,
-    # a cache hit, a forward run.
+    # a cache hit, a forward run; on the cut architecture.
     back, requests = 2, [0, 1, 2, 1, 5]
-    cpu = Engine(engine.model, built.params, device="cpu")
-    engine.reset()
+    small, small_params = cut_quality(torch, seed)
     sides = [(e, e.frames_processed, VideoStream(
         e, lambda i: frames[i], num_frames=len(frames), max_backtrack=back))
-        for e in (engine, cpu)]
+        for e in (Engine(small.obj, small_params, device=device),
+                  Engine(small.obj, small_params, device="cpu"))]
     for n in requests:
         got, want = (stream.get_frame(n) for _, _, stream in sides)
         card_vs_cpu("VideoStream", f"frame {n}", got, want)
     calls = [e.frames_processed - before for e, before, _ in sides]
-    log(f"runtime: VideoStream (max_backtrack {back}, requests {requests}) "
-        f"on the card within bound of the CPU's; engine calls card/CPU "
+    log(f"runtime: VideoStream (max_backtrack {back}, requests {requests}; "
+        f"the quality architecture cut to {CPU_CHECK_BLOCKS} res blocks a "
+        f"net) on the card within bound of the CPU's; engine calls card/CPU "
         f"{calls[0]}/{calls[1]}")
     if calls[0] != calls[1] or calls[0] != 8:
         raise AssertionError(f"VideoStream made {calls} engine calls, not 8")
-    del cpu, sides
+    del sides
 
     with tempfile.TemporaryDirectory() as d:
         save_package(d, config, built)
@@ -876,32 +959,32 @@ def kernel_group(name: str) -> str:
 def profiled(torch, fn, trace_path=None):
     """``fn()`` under a ``torch.profiler`` session (CPU and CUDA
     activities), the card synchronized before and after: the profile and
-    the device kernels, copies and fills of its trace (written to
-    ``trace_path`` if given).  A session whose trace holds no device
-    event is logged and run again, ``fn`` with it, up to
-    ``PROFILE_SESSIONS`` sessions."""
+    its device kernels, copies and fills (``{"name", "ts", "dur"}``, µs,
+    read from the profiler's results; the Chrome trace is written only
+    to ``trace_path``, if given).  A session that holds no device event
+    is logged and run again, ``fn`` with it, up to ``PROFILE_SESSIONS``
+    sessions."""
     from torch.profiler import ProfilerActivity, profile as tprofile
 
+    cuda = torch.autograd.DeviceType.CUDA
     for session in range(1, PROFILE_SESSIONS + 1):
         torch.cuda.synchronize()
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as d:
-            path = trace_path or os.path.join(d, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                trace = json.load(f)["traceEvents"]
-        events = [e for e in trace if e.get("ph") == "X" and e.get("cat") in
-                  ("kernel", "gpu_memcpy", "gpu_memset")]
+        if trace_path:
+            prof.export_chrome_trace(trace_path)
+        results = prof.profiler.kineto_results.events()
+        events = [{"name": e.name(), "ts": e.start_ns() / 1e3,
+                   "dur": e.duration_ns() / 1e3}
+                  for e in results if e.device_type() == cuda]
         if events:
             return prof, events
-        runtime = [e.get("name") for e in trace
-                   if e.get("cat") == "cuda_runtime"]
+        runtime = [e.name() for e in results if e.name().startswith("cuda")]
         log(f"profiler session {session} of {PROFILE_SESSIONS} recorded no "
-            f"device activity ({len(trace)} trace events; {len(runtime)} "
-            f"CUDA runtime calls, {runtime.count('cudaGraphLaunch')} of them "
+            f"device activity ({len(results)} events; {len(runtime)} CUDA "
+            f"runtime calls, {runtime.count('cudaGraphLaunch')} of them "
             f"cudaGraphLaunch)")
     raise RuntimeError(f"the profiler recorded no device activity in "
                        f"{PROFILE_SESSIONS} sessions")
@@ -983,13 +1066,14 @@ def phase_ps2(torch, seed, device, paths):
 def phase_variants(torch, seed, device, paths):
     """Every serving option on the PS2-fast architecture at full frame:
     launches, output, sync, replay and card-vs-CPU checks as for the
-    tiers (each engine kept in ``paths``)."""
+    tiers, the last on the architecture cut to ``CPU_CHECK_BLOCKS`` res
+    blocks (each engine kept in ``paths``)."""
     launches = {}
     for name, (options, k1_per_frame, k2_per_frame) in VARIANTS.items():
         engine, frames, k1, k2, _ = drive_path(
             torch, f"variant {name}", ps2_config("ps2_fast", **options),
             seed, device, k1_per_frame, k2_per_frame,
-            n_frames=VARIANT_FRAMES, ref_frames=VARIANT_FRAMES)
+            n_frames=VARIANT_FRAMES, ref_frames=VARIANT_FRAMES, cut=True)
         launches[name] = {"K1": k1, "K2": k2}
         paths[f"variant {name}"] = (engine, frames, k1_per_frame,
                                     k2_per_frame)
@@ -1023,11 +1107,13 @@ def phase_int8(torch, seed, device, paths):
     seeded float params; every 3x3 C x C conv quantized, so 0 K1 and 1
     K2 a frame): the quality tier with dynamic activation scales, the
     quality tier with scales calibrated by ``calibrate(method="minmax")``
-    over 4 frames on the card (and on the CPU, the two range maps
-    compared), and ``ps2_style`` (the autoencoder's 256-channel convs: K
-    = 2304, int32 sums past 2^24), each driven and checked as the float
-    paths (launches from 0, sync, card vs CPU, replays vs eager), timed,
-    and held against the float tier's frames (informational)."""
+    over 4 frames on the card (the card's range map held against the
+    CPU's on the architecture cut to ``CPU_CHECK_BLOCKS`` res blocks a
+    net, ``cut_quality``), and ``ps2_style`` (the autoencoder's
+    256-channel convs: K = 2304, int32 sums past 2^24), each driven and
+    checked as the float paths (launches from 0, sync, card vs CPU on
+    the cut architecture, replays vs eager), timed, and held against the
+    float tier's frames (informational)."""
     from joshupscale_torch.export.quantize import (
         calibrate,
         quantize_params_int8,
@@ -1035,10 +1121,10 @@ def phase_int8(torch, seed, device, paths):
 
     out = {}
 
-    def run(name, config, transform):
+    def run(name, config, transform, cut=True):
         engine, frames, k1, k2, built = drive_path(
             torch, name, config, seed, device, 0, 1,
-            ref_frames=INT8_REF_FRAMES, transform=transform)
+            ref_frames=INT8_REF_FRAMES, transform=transform, cut=cut)
         out[name] = {"k1": k1, "k2": k2, **time_frames(
             torch, name, engine, frames, device, n=23),
             "vs_float": int8_vs_float(torch, name, engine, built,
@@ -1052,25 +1138,38 @@ def phase_int8(torch, seed, device, paths):
     ranges = calibrate(built.obj, built.params, cal, method="minmax",
                        device=device)
     t_card = time.perf_counter() - t0
+    # flow: conv_1, the head, 10 blocks; generator: conv_1, 24 blocks.
+    if len(ranges) != 3 + 2 * 34:
+        raise AssertionError(f"calibration keys: {len(ranges)} on the card")
+    # The card against the CPU on the cut architecture (calibrate is held
+    # against the reference in tests/test_torch_quantize.py).
+    small, small_params = cut_quality(torch, seed)
     t0 = time.perf_counter()
-    ranges_cpu = calibrate(built.obj, built.params, cal, method="minmax",
+    ranges_cut = calibrate(small.obj, small_params, cal, method="minmax",
+                           device=device)
+    t_cut = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranges_cpu = calibrate(small.obj, small_params, cal, method="minmax",
                            device="cpu")
     t_cpu = time.perf_counter() - t0
-    # flow: conv_1, the head, 10 blocks; generator: conv_1, 24 blocks.
-    if sorted(ranges) != sorted(ranges_cpu) or len(ranges) != 3 + 2 * 34:
-        raise AssertionError(f"calibration keys differ: {len(ranges)} on "
-                             f"the card, {len(ranges_cpu)} on the CPU")
-    gap = max(abs(ranges[k] - ranges_cpu[k]) / ranges_cpu[k]
-              for k in ranges)
+    if (sorted(ranges_cut) != sorted(ranges_cpu)
+            or len(ranges_cut) != 3 + 4 * CPU_CHECK_BLOCKS):
+        raise AssertionError(f"calibration keys differ: {len(ranges_cut)} "
+                             f"on the card, {len(ranges_cpu)} on the CPU")
+    gap = max(abs(ranges_cut[k] - ranges_cpu[k]) / ranges_cpu[k]
+              for k in ranges_cut)
     log(f"calibrate(minmax) over 4 frames: {len(ranges)} conv inputs "
-        f"(flow.conv_1 ... generator.block_24.conv_2), card {t_card:.1f} s, "
-        f"CPU {t_cpu:.1f} s; largest relative gap between the two range "
-        f"maps {gap:.3g}")
+        f"(flow.conv_1 ... generator.block_24.conv_2) on the card in "
+        f"{t_card:.1f} s; cut to {CPU_CHECK_BLOCKS} res blocks a net "
+        f"({len(ranges_cut)} conv inputs), card {t_cut:.1f} s, CPU "
+        f"{t_cpu:.1f} s: largest relative gap between the two range maps "
+        f"{gap:.3g}")
     out["calibration"] = {"keys": len(ranges), "max_rel_gap": gap,
                           "card_s": t_card, "cpu_s": t_cpu,
                           "ranges": ranges}
     run("int8 quality calibrated", quality_config(),
-        lambda p: quantize_params_int8(p, ranges=ranges))
+        lambda p: quantize_params_int8(p, ranges=ranges),
+        lambda p: quantize_params_int8(p, ranges=ranges_cut))
     run("int8 ps2_style", ps2_config("ps2_style"), quantize_params_int8)
     return out
 
@@ -1574,13 +1673,16 @@ def phase_train(torch, seed, device, out_dir):
 
     res["card_vs_cpu"] = train_card_vs_cpu(torch, setup, batches[0], seed)
 
-    dev_batch = device_normalize(batches[0], device)
+    # The timed setups stay (warm) for the training profiles.
+    res["batch"] = device_normalize(batches[0], device)
+    res["batches"] = batches
+    res["setups"] = {}
     for dtype in ("float32", "bfloat16"):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         timed = build_training(train_config(out_dir, dtype), seed, device)
-        res[dtype] = time_train_steps(torch, timed, dev_batch, seed, base)
-        del timed
+        res[dtype] = time_train_steps(torch, timed, res["batch"], seed, base)
+        res["setups"][dtype] = timed
         torch.cuda.empty_cache()
 
     k1, k2, p1, p2 = (k.launches for k in kernels)
@@ -1595,49 +1697,48 @@ def phase_train(torch, seed, device, out_dir):
     return res
 
 
-def profile_train(torch, seed, device, step_ms, label="train",
-                  build=None):
+def host_copy(event) -> bool:
+    """Whether a device event is a copy between host and card."""
+    return event["name"].startswith(("Memcpy HtoD", "Memcpy DtoH"))
+
+
+def device_split(label, dtype, events, steps, step_ms):
+    """Device time a step by kernel group from a trace's device events
+    over ``steps`` steps, and the idle share against the unprofiled step
+    median ``step_ms``; logged with the host copies among the events."""
+    groups = {}
+    for e in events:
+        key = kernel_group(e["name"])
+        groups[key] = groups.get(key, 0.0) + e["dur"] / (steps * 1e3)
+    busy = sum(groups.values())
+    idle = 1 - busy / step_ms
+    log(f"{label} {dtype}: {len(events) / steps:.0f} device ops a step "
+        f"({sum(map(host_copy, events)) / steps:g} host copies), "
+        f"{busy:.2f} ms of device time against the {step_ms:.2f} ms step "
+        f"(idle share {idle:.3f}): " + "; ".join(
+            f"{k} {v:.2f}" for k, v in sorted(groups.items(),
+                                              key=lambda kv: -kv[1])))
+    return {"ops": len(events) / steps, "busy_ms": busy, "idle_share": idle,
+            "groups": groups}
+
+
+def profile_train(torch, setups, batch, seed, step_ms, label="train"):
     """Device time of a full-width train step by kernel group, from a
-    profile of 2 steps after 2 warm-up steps, in float32 and bf16; the
-    idle share against the unprofiled step median (``step_ms``).
-    ``build(dtype)`` makes the setup (default: the FRVSR phase's)."""
-    from joshupscale_torch.training.cli import build_training
-    from joshupscale_torch.training.trainer import device_normalize
-
-    if build is None:
-        def build(dtype):
-            return build_training(train_config("unused", dtype), seed,
-                                  device)
-
-    batch_np = train_batches(1, seed)[0]
+    profile of 2 steps of each of ``setups`` (dtype -> the setup its
+    phase timed, warm from those steps) on ``batch``, the phase's; the
+    idle share against the unprofiled step median (``step_ms``)."""
     out = {}
-    for dtype in ("float32", "bfloat16"):
-        setup = build(dtype)
-        batch = device_normalize(batch_np, device)
+    for dtype, setup in setups.items():
         noise = setup.built.obj.draw_noise(
-            batch["input"].shape, torch.Generator(device).manual_seed(seed),
-            device)
+            batch["input"].shape,
+            torch.Generator(setup.device).manual_seed(seed), setup.device)
+
         def steps():
             for _ in range(2):
                 setup.step(setup.state, batch, noise=noise)
 
-        steps()
         _, events = profiled(torch, steps)
-        groups = {}
-        for e in events:
-            key = kernel_group(e["name"])
-            groups[key] = groups.get(key, 0.0) + e["dur"] / 2e3
-        busy = sum(groups.values())
-        idle = 1 - busy / step_ms[dtype]
-        log(f"{label} {dtype}: {len(events) / 2:.0f} device ops a step, "
-            f"{busy:.2f} ms of device time against the {step_ms[dtype]:.2f}"
-            f" ms step (idle share {idle:.3f}): " + "; ".join(
-                f"{k} {v:.2f}" for k, v in sorted(groups.items(),
-                                                  key=lambda kv: -kv[1])))
-        out[dtype] = {"ops": len(events) / 2, "busy_ms": busy,
-                      "idle_share": idle, "groups": groups}
-        del setup
-        torch.cuda.empty_cache()
+        out[dtype] = device_split(label, dtype, events, 2, step_ms[dtype])
     return out
 
 
@@ -1670,9 +1771,6 @@ GAN_MODELS = {
 GAN_EPOCHS, GAN_STEPS = 2, 2  # fit: epochs x steps, then validation
 GAN_TIMED = 5  # timed steps per dtype, after 2 warm-up steps
 GAN_PLAY = 2  # play clips (the config's play_size)
-# The card-vs-CPU step's batch (the CPU side at batch 4 is the phase's
-# longest part; cut here, for this check only, where it runs over ~60 s).
-GAN_CHECK_BATCH = 4
 # Card vs CPU, one float32 step (TF32 off), written before the first
 # run: each loss term within 1e-4 relative, each gradient of both groups
 # within 1e-3 relative L2; the play prediction within 1e-3.  The first
@@ -1682,6 +1780,10 @@ GAN_CHECK_BATCH = 4
 # the 19-step sums cancel), as far as card and CPU differ: so each
 # group is held to the larger of 1e-3 and 3x its largest change under
 # three such nudges (``GAN_NUDGES``), and the 1e-3 verdict is printed.
+# The step runs at the phase's batch with both resnets cut to
+# ``CPU_CHECK_BLOCKS`` res blocks (the CPU side at full depth was the
+# phase's longest part; ``tests/test_torch_gan.py`` holds the step
+# against the reference).
 GAN_LOSS_RTOL, GAN_GRAD_RTOL, GAN_PLAY_ATOL = 1e-4, 1e-3, 1e-3
 GAN_NUDGES = (1 + 1e-7, 1 - 1e-7, 1 + 2e-7)
 # Launches of one play prediction: 2 per res block of both nets, 18
@@ -1770,17 +1872,18 @@ def gan_pull(torch, setup, batch, noise, dev, nudge=None):
     return out + (time.perf_counter() - t0,)
 
 
-def gan_card_vs_cpu(torch, setup, batch_np, seed):
-    """One float32 step on the card against the CPU from the same params,
-    batch and noise: every loss term, every gradient of both groups, the
-    gate decision and ``discr_steps``.  The gradients are held to
-    ``GAN_GRAD_RTOL`` or 3x the card's own largest change under the
-    ``GAN_NUDGES`` of the first convs' kernels, whichever is larger."""
+def gan_card_vs_cpu(torch, config, batch_np, seed, device):
+    """One float32 step of ``config``'s GAN, its resnets cut to
+    ``CPU_CHECK_BLOCKS`` res blocks (``build_gan`` of ``cut_depth``), on
+    the card against the CPU from the same params, batch and noise: every
+    loss term, every gradient of both groups, the gate decision and
+    ``discr_steps``.  The gradients are held to ``GAN_GRAD_RTOL`` or 3x
+    the card's own largest change under the ``GAN_NUDGES`` of the first
+    convs' kernels, whichever is larger."""
+    setup = build_gan(torch, dict(config, models=cut_depth(config["models"])),
+                      seed, device)
     trainer = setup.built.obj
-    b = GAN_CHECK_BATCH
-    batch_np = {k: v[:b] for k, v in batch_np.items()}
-    if b != TRAIN_BATCH:
-        log(f"gan card vs CPU: batch cut to {b} for this check")
+    b = len(batch_np["input"])
     noise = trainer.draw_noise(batch_np["input"].shape,
                                torch.Generator().manual_seed(seed), "cpu")
     card = gan_pull(torch, setup, batch_np, noise, setup.device)
@@ -1813,7 +1916,8 @@ def gan_card_vs_cpu(torch, setup, batch_np, seed):
         res[f"{group}_worst_grad"] = worst
         res[f"{group}_self_rel"] = self_rel
         res[f"{group}_bound"] = bound
-    log(f"gan f32 card vs CPU (batch {b}; card {card[4]:.1f} s, CPU "
+    log(f"gan f32 card vs CPU (batch {b}, flow and generator cut to "
+        f"{CPU_CHECK_BLOCKS} res blocks; card {card[4]:.1f} s, CPU "
         f"{cpu[4]:.1f} s): worst loss term {worst_loss} relative "
         f"{loss_rel[worst_loss]:.2e} (bound {GAN_LOSS_RTOL:g}); "
         f"gen_loss {card[0]['gen_loss']:.7f} vs {cpu[0]['gen_loss']:.7f}; "
@@ -1937,7 +2041,8 @@ def phase_gan(torch, seed, device, out_dir):
     checkpoint directory, the play callback's prediction each epoch
     (``PlayCallback.predict``: ``predict_sequence`` + ``build_strips``
     on the card, through K1 in float32; no GIF), checked against the CPU;
-    one float32 step on the card against the CPU; the gate forced shut
+    one float32 step on the card against the CPU (both resnets cut to
+    ``CPU_CHECK_BLOCKS`` res blocks); the gate forced shut
     for one step; steps timed in float32 and bf16; then the generator
     group exported and served as the FRVSR phase serves its export.  The
     train steps launch no K1 or K2."""
@@ -2031,15 +2136,18 @@ def phase_gan(torch, seed, device, out_dir):
 
     for k in kernels:
         k.launches = 0
-    res["card_vs_cpu"] = gan_card_vs_cpu(torch, setup, batches[0], seed)
-    dev_batch = device_normalize(batches[0], device)
+    res["card_vs_cpu"] = gan_card_vs_cpu(torch, config, batches[0], seed,
+                                         device)
+    res["batch"] = dev_batch = device_normalize(batches[0], device)
     state = gan_gate_shut(torch, setup, state, dev_batch)
+    # The timed setups stay (warm) for the training profiles.
+    res["setups"] = {}
     for dtype in ("float32", "bfloat16"):
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
         timed = build_gan(torch, gan_config(out_dir, dtype), seed, device)
         res[dtype] = time_gan_steps(torch, timed, dev_batch, seed, base)
-        del timed
+        res["setups"][dtype] = timed
         torch.cuda.empty_cache()
     k1, k2, p1, p2 = (k.launches for k in kernels)
     log(f"gan: launches over the card-vs-CPU step, the gate-shut step and "
@@ -2050,6 +2158,170 @@ def phase_gan(torch, seed, device, out_dir):
     res["export_launches"], res["engine"] = serve_trained(
         torch, "gan export", config, setup, state, seed, device)
     log(f"gan: phase took {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# The model-quality tools on the card (phase_lifecycle): a rendered synth
+# set (4 train, 2 val sequences of 64x64 HR crops), the zero-init PSNR
+# bound, the drift clip's source size and the soak's shape.
+LIFE_SOURCE = os.path.join(HERE, "docs", "learned_compare.png")
+LIFE_TRAIN, LIFE_VAL, LIFE_HR = 4, 2, 64
+LIFE_BN_BATCHES = 4
+LIFE_ZERO_INIT_DB = 0.1  # zero tails serve the bilinear skip
+LIFE_CARD_VS_CPU_DB = 0.1  # eval_synth's PSNRs, card against CPU
+LIFE_DRIFT_SOURCE = 1728  # 576 upscaled x3: wider than 2 x 480 + 600
+LIFE_FULLRES_FRAMES = 10
+LIFE_SOAK = {"steps": 6, "crop": 32, "batch": 2}
+
+
+def life_tool(name, argv):
+    """``learning_run.run_tool`` of the tool ``name``: its output and
+    seconds logged; returns the output."""
+    from joshupscale_torch.tools.learning_run import run_tool
+
+    def echo(line):
+        if line.strip():
+            log(f"  {name}: {line.strip()}")
+
+    text, seconds = run_tool(name, argv, echo)
+    log(f"lifecycle {name} {' '.join(map(str, argv[1:]))}: exit 0 in "
+        f"{seconds:.1f} s")
+    return text
+
+
+def phase_lifecycle(torch, seed, device, out_dir, checkpoint):
+    """The model-quality tools (``joshupscale_torch/tools/``) on the card,
+    in this process, through their ``main``s: ``make_synth_dataset``
+    renders a small set from ``docs/learned_compare.png``;
+    ``bn_recalibrate`` runs over ``LIFE_BN_BATCHES`` batches of it on
+    ``phase_train``'s FRVSR checkpoint (only moving-statistic leaves
+    change, all finite); ``eval_synth`` on that checkpoint (card and CPU
+    PSNRs compared), with ``--zero-init`` (within ``LIFE_ZERO_INIT_DB``
+    of bilinear x4) and with ``--u8-state --pingpong``;
+    ``eval_serving_fullres`` at 270x480, ``drift_1000`` at its full T =
+    1000 and width with the launch counts set to 0 first (three quality
+    engines: 68 K1 + 1 K2 a warm-up or captured step; the counts see no
+    replay of a captured graph: ``phase_profiled`` counts the quality
+    path's graph; stream against clip 0 u8 steps: both replay the one
+    captured graph), both on the
+    source upscaled to ``LIFE_DRIFT_SOURCE``; ``gan_soak``'s full-width
+    TecoGAN step ``LIFE_SOAK`` (finite losses).  Returns the figures."""
+    import re
+
+    import cv2
+
+    from joshupscale_torch.runtime.engine import WARMUP_STEPS
+    from joshupscale_torch.tools.gan_soak import soak
+    from joshupscale_torch.tools.val_data import report_psnrs
+
+    started = time.perf_counter()
+    data = os.path.join(out_dir, "synth")
+    life_tool("make_synth_dataset", [
+        data, "--source", LIFE_SOURCE, "--train", LIFE_TRAIN, "--val",
+        LIFE_VAL, "--hr-size", LIFE_HR, "--seed", seed])
+    crop = LIFE_HR // 8  # LR crops of half a frame
+    config = {"models": TRAIN_MODELS, "train_dataset": [
+        {"name": "LocalDatasetOp",
+         "lr_path": os.path.join(data, "train", "lr", "*.png"),
+         "hr_path": os.path.join(data, "train", "hr", "*.png"),
+         "shuffle": True},
+        {"name": "RandomCropOp", "crop_size": crop, "num_img": 10},
+        {"name": "NormalizeOp", "crop_size": crop},
+        {"name": "RepeatOp"}]}
+    config_path = os.path.join(out_dir, "lifecycle.yaml")
+    with open(config_path, "w") as f:
+        json.dump(config, f)  # JSON is YAML
+    recal = os.path.join(out_dir, "bncal.npz")
+    life_tool("bn_recalibrate", [checkpoint, "-c", config_path, "-o", recal,
+                                "--batches", LIFE_BN_BATCHES,
+                                "--batch-size", TRAIN_BATCH])
+    with np.load(checkpoint) as a, np.load(recal) as b:
+        if sorted(a.files) != sorted(b.files):
+            raise AssertionError("bn_recalibrate changed the key set")
+        changed = [k for k in a.files if not np.array_equal(a[k], b[k])]
+        stats = [k for k in a.files if k.startswith("params.")
+                 and k.endswith(("moving_mean", "moving_variance"))]
+        finite = all(np.all(np.isfinite(b[k])) for k in stats)
+        leaves = len(a.files)
+    log(f"lifecycle bn_recalibrate: {len(changed)} of the checkpoint's "
+        f"{leaves} leaves changed, {len(stats)} moving statistics in its "
+        f"params; other leaves changed: {sorted(set(changed) - set(stats))};"
+        f" all finite: {finite}")
+    if set(changed) != set(stats) or not stats or not finite:
+        raise AssertionError("bn_recalibrate changed a leaf other than the "
+                             "moving statistics, missed one, or made one "
+                             "non-finite")
+
+    res = {"bn_changed": len(changed), "bn_stats": len(stats)}
+    out = life_tool("eval_synth", [checkpoint, "--data", data])
+    cpu = life_tool("eval_synth", [checkpoint, "--data", data, "--cpu"])
+    res["psnr"], res["psnr_cpu"] = report_psnrs(out), report_psnrs(cpu)
+    gap = max(abs(c - p) for c, p in zip(res["psnr"], res["psnr_cpu"]))
+    if gap > LIFE_CARD_VS_CPU_DB:
+        raise AssertionError(f"eval_synth: card and CPU PSNRs differ by "
+                             f"{gap:.2f} dB")
+    model, bilinear = report_psnrs(life_tool("eval_synth", [
+        "random", "--zero-init", "--data", data]))
+    res["zero_init"] = (model, bilinear)
+    if abs(model - bilinear) > LIFE_ZERO_INIT_DB:
+        raise AssertionError(f"eval_synth --zero-init: {model:.2f} dB "
+                             f"against bilinear {bilinear:.2f}")
+    out = life_tool("eval_synth", [checkpoint, "--data", data, "--u8-state",
+                                  "--pingpong"])
+    res["u8_state"] = report_psnrs(out)
+    res["pingpong"] = float(re.search(r"ping-pong inconsistency: ([0-9.]+)",
+                                      out).group(1))
+
+    big = os.path.join(out_dir, "drift_source.png")
+    src = cv2.imread(LIFE_SOURCE, cv2.IMREAD_COLOR)
+    cv2.imwrite(big, cv2.resize(src, (LIFE_DRIFT_SOURCE, LIFE_DRIFT_SOURCE),
+                                interpolation=cv2.INTER_CUBIC))
+    res["fullres"] = report_psnrs(life_tool("eval_serving_fullres", [
+        checkpoint, "--source", big, "--frames", LIFE_FULLRES_FRAMES]))
+
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    out = life_tool("drift_1000", ["--source", big])
+    torch.cuda.synchronize()
+    k1, k2, p1, p2 = (k.launches for k in kernels)
+    steps = 3 * (WARMUP_STEPS + 1)
+    summary = json.loads(out.strip().splitlines()[-1])
+    u8 = summary["u8_state_vs_float"]
+    res.update(drift_s=time.perf_counter() - t0, drift=summary,
+               launches=(k1, k2))
+    log(f"lifecycle drift_1000 (T = {summary['frames']}, 270x480, quality "
+        f"bf16): K1 launches {k1} ({k1 / steps:g} a warm-up or captured "
+        f"step of 3 engines; the clip's graph replays are not counted), "
+        f"K2 {k2}, P1/P2 {p1}/{p2}; stream vs clip "
+        f"{summary['stream_vs_clip_max_u8']}; u8 state vs float: mean "
+        f"{u8['mean_u8_steps_overall']:.4f}, pooled p99 "
+        f"{u8['p99_u8_steps_overall']}, p99 of frame p99s "
+        f"{u8['p99_of_frame_p99s']:.1f}, max {u8['max_u8_steps_overall']}; "
+        f"mean by checkpoint {u8['mean_by_checkpoint']}, max by checkpoint "
+        f"{u8['max_by_checkpoint']}")
+    if (k1 != K1_PER_FRAME * steps or k2 != steps or p1 or p2
+            or summary["frames"] != 1000
+            or set(summary["stream_vs_clip_max_u8"].values()) != {0}):
+        raise AssertionError("drift_1000: launches off 68 K1 + 1 K2 a step, "
+                             "or stream and clip differ")
+
+    t0 = time.perf_counter()
+    history, steps_s = soak(LIFE_SOAK["steps"], LIFE_SOAK["crop"],
+                            LIFE_SOAK["batch"], device, log_every=1,
+                            log=lambda m: log(f"  gan_soak: {m}"))
+    if history is None or len(history) != LIFE_SOAK["steps"]:
+        raise AssertionError("gan_soak: a non-finite loss")
+    res["soak"] = {k: [m[k] for m in history]
+                   for k in ("gen_loss", "content_loss", "discr_loss")}
+    log(f"lifecycle gan_soak ({LIFE_SOAK['steps']} full-width steps, crop "
+        f"{LIFE_SOAK['crop']}, batch {LIFE_SOAK['batch']}): "
+        f"{steps_s / LIFE_SOAK['steps'] * 1e3:.0f} ms a step, "
+        f"{time.perf_counter() - t0:.1f} s with the build; gen_loss "
+        f"{['%.4f' % x for x in res['soak']['gen_loss']]}")
+    res["seconds"] = time.perf_counter() - started
+    log(f"lifecycle: phase took {res['seconds']:.1f} s")
     return res
 
 
@@ -2609,7 +2881,7 @@ def native_trace(torch, name, step, model, k1_per_frame, frames, device):
 
 
 def native_check(torch, name, package, step, model, params, frames, device,
-                 host, frames_path):
+                 host, frames_path, engine=None):
     """The loaded artifact ``step`` of the package at ``package`` against
     ``Engine`` on ``model`` and ``params``: frames and float state over
     ``NATIVE_CHECKED`` frames (``native_step_check``; ``Engine``'s frames
@@ -2617,11 +2889,15 @@ def native_check(torch, name, package, step, model, params, frames, device,
     synchronous on the same frames within the card-vs-CPU gate of
     ``Engine.process``.  Untimed but for the CLI's own frame loop
     (``cli_s``), which serves as the short run of a timing only where no
-    other process runs.  Returns the results, ``Engine``'s frames, the
-    engine (reset) and the CLI's frames."""
+    other process runs.  ``engine``: an ``Engine`` of the same model and
+    params that an earlier phase built (reset here), in place of a new
+    one.  Returns the results, ``Engine``'s frames, the engine (reset)
+    and the CLI's frames."""
     from joshupscale_torch.runtime.engine import Engine
 
-    engine = Engine(model, params, device=device)
+    if engine is None:
+        engine = Engine(model, params, device=device)
+    engine.reset()
     *step_diff, ref = native_step_check(
         torch, f"native {name}", step, engine, frames[:NATIVE_CHECKED],
         device)
@@ -2724,7 +3000,7 @@ def native_refusal(host, package, frames_path):
 
 
 def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
-                 int8):
+                 int8, paths):
     """Native serving over the port: the C++ host
     (``joshupscale_torch/native``; the op library was built before the
     kernels' first launch, ``ops_build_s``), the OBS model set and the
@@ -2736,7 +3012,8 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
     (``tier_weights``; ``model_psp_fast``'s flow head scaled to large
     flows), in two processes; beside them ``export_int8_tiers`` writes
     the three int8 tiers of ``phase_int8`` (``int8``, its results: the
-    calibrated tier's ranges from the card's ``calibrate``) in two more
+    calibrated tier's ranges from the card's ``calibrate``; ``paths``,
+    its engines, serve as their artifacts' references) in two more
     (``NATIVE_INT8_PROCESSES``); the host builds beside them (its build
     time is taken there).  While the int8 processes still run, only
     untimed checks run here: each float tier's artifact against
@@ -2782,7 +3059,7 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
         host = str(native.build())
         host_s = time.perf_counter() - t0
         log(f"native: host build (cmake + ninja, beside the four exporting "
-            f"processes) {host_s:.1f} s, op library build "
+            f"processes) {host_s:.1f} s, kernel and op library builds "
             f"{ops_build_s:.1f} s")
         compile_s, wall_s, _ = collect_set(float_procs)
         log("native set: make_model_set wrote the four tiers for the card, "
@@ -2831,8 +3108,9 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
                                         NATIVE_TIERS[name], frames, device))
         del step
     for d, (name, _, _) in NATIVE_INT8.items():
-        _, built, params = int8_tier(torch, d, seed,
-                                     int8["calibration"]["ranges"])
+        # phase_int8's engine of the tier: the params export_int8_tiers
+        # exported (int8_tier).
+        engine = paths[name][0]
         nodes, convs = int_mm[d]
         log(f"native {name}: the exported graph holds {nodes} "
             f"aten._int_mm nodes for {convs} quantized convs")
@@ -2841,15 +3119,15 @@ def phase_native(torch, seed, device, out_dir, ops_build_s, engine_ms,
                                  f"the graph, {convs} quantized convs")
         package = os.path.join(int8_dir, d)
         step = load_aoti_step(package)
-        tiers[name] = native_trace(torch, name, step, built.obj, 0, frames,
-                                   device)
+        tiers[name] = native_trace(torch, name, step, engine.model, 0,
+                                   frames, device)
         checked, ref, engine, _ = native_check(
-            torch, name, package, step, built.obj, params, frames, device,
-            host, frames_path)
+            torch, name, package, step, engine.model, None, frames, device,
+            host, frames_path, engine=engine)
         tiers[name].update(checked, compile_s=compile_s[d], int_mm=nodes)
         if d == "int8_quality":
             int8_ref = ref
-        del engine, built, params, step
+        del engine, step
     int8_package = os.path.join(int8_dir, "int8_quality")
     refusal = native_refusal(host, int8_package, frames_path)
     log(f"native int8 quality: the embedded-Python backend refuses the "
@@ -3411,37 +3689,47 @@ def phase_spatial(torch, seed, device):
     return res
 
 
-def profile_fit(torch, seed, device, out_dir):
-    """``fit``'s profiler window on the card: the full-width FRVSR
-    config (``train_config``) for 4 steps with ``profile_dir`` and a
-    window of global steps 1..2; the trace it writes must hold CUDA
-    kernel events.  Returns (kernel events, trace files)."""
+def profile_fit(torch, setup, batches, seed, out_dir, step_ms):
+    """``fit``'s profiler window on the card: 4 steps of ``setup`` (the
+    full-width bf16 FRVSR setup ``phase_train`` timed) on ``batches``
+    with ``profile_dir`` and a window of global steps 1..2; the trace it
+    writes must hold CUDA kernel events.  The window's device events
+    give the bf16 step's split (``device_split`` against ``step_ms``, a
+    step timed on a batch already on the card), without its host copies:
+    the stager's batches (host to device) and the metric reads (device
+    to host) are ``fit``'s, not the step's.  Returns (kernel events,
+    trace files, the split)."""
     import glob
     import itertools
 
-    from joshupscale_torch.training.cli import build_training
     from joshupscale_torch.training.trainer import fit
 
-    config = train_config(out_dir, "bfloat16")
-    setup = build_training(config, seed, device)
     prof_dir = os.path.join(out_dir, "profile")
-    fit(setup.step, setup.state, itertools.cycle(train_batches(2, seed)),
+    fit(setup.step, setup.state, itertools.cycle(batches),
         epochs=1, steps_per_epoch=4,
-        rng=torch.Generator(device).manual_seed(seed), log_fn=lambda s: None,
-        profile_dir=prof_dir, profile_batch=(1, 2))
+        rng=torch.Generator(setup.device).manual_seed(seed),
+        log_fn=lambda s: None, profile_dir=prof_dir, profile_batch=(1, 2))
     torch.cuda.synchronize()
     files = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
-    kernels = 0
+    events = []
     for path in files:
         with open(path) as f:
-            kernels += sum(1 for e in json.load(f)["traceEvents"]
-                           if e.get("ph") == "X" and e.get("cat") == "kernel")
+            events += [e for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") in
+                       ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = sum(1 for e in events if e["cat"] == "kernel")
     log(f"fit profiler window (global steps 1..2 of 4, flow 64x10, "
         f"generator 64x24, bf16): {len(files)} trace file(s) in "
         f"profile_dir, {kernels} CUDA kernel events")
     if len(files) != 1 or not kernels:
         raise AssertionError("fit's profiler window traced no CUDA kernel")
-    return kernels, len(files)
+    host = [e for e in events if host_copy(e)]
+    log(f"fit profiler window: {len(host)} host copies "
+        f"({sum(e['dur'] for e in host) / 1e3:.2f} ms) left out of the "
+        f"step's split")
+    split = device_split("train (fit's window)", "bfloat16",
+                         [e for e in events if not host_copy(e)], 2, step_ms)
+    return kernels, len(files), split
 
 
 def main() -> int:
@@ -3472,13 +3760,10 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"kernel build (nvcc, sm_90a, in parallel): "
-        f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    _build.build_ops()
+    _build.build_ops(also=[p.stem for p in _build.CSRC.glob("*.cu")])
     ops_build_s = time.perf_counter() - t0
-    log(f"op library build (csrc/torch_ops.cpp against torch's headers): "
+    log(f"kernel and op library builds (nvcc for sm_90a, every source at "
+        f"once, beside csrc/torch_ops.cpp against torch's headers): "
         f"{ops_build_s:.1f} s")
     usage = _build.resource_usage()
     for source, rows in usage.items():
@@ -3504,7 +3789,7 @@ def main() -> int:
     paths["quality"] = (engine, frames, K1_PER_FRAME, 1)
     times = phase_times(torch, engine, frames, device)
     runtime = phase_runtime(torch, quality_config(), engine, built, frames,
-                            device, times["k2"][0])
+                            device, times["k2"][0], args.seed)
     del engine, built
     ps2 = phase_ps2(torch, args.seed, device, paths)
     variants = phase_variants(torch, args.seed, device, paths)
@@ -3518,9 +3803,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as train_dir:
         train = phase_train(torch, args.seed, device, train_dir)
         gan = phase_gan(torch, args.seed, device, train_dir)
+        life = phase_lifecycle(torch, args.seed, device, train_dir,
+                               os.path.join(train_dir, "ckpt", "latest.npz"))
         doors = phase_doors(torch, args.seed, device, train_dir)
         mesh = phase_mesh(torch, args.seed, device, train_dir)
-        mark("train, gan, doors, mesh")
+        mark("train, gan, lifecycle, doors, mesh")
         paths["trained export"] = (*train.pop("engine"), K1_PER_FRAME, 1)
         paths["gan export"] = (*gan.pop("engine"), K1_PER_FRAME, 1)
         paths["doors export"] = (*doors.pop("engine"), K1_PER_FRAME, 1)
@@ -3536,20 +3823,24 @@ def main() -> int:
                                batched)
         mark("conv probe, profiled replays")
         nat = phase_native(torch, args.seed, device, train_dir, ops_build_s,
-                           times["frame_ms"], int8)
+                           times["frame_ms"], int8, paths)
         mark("native")
     recount = recount_after_native(torch, "quality", *paths["quality"],
                                    device)
+    # The training profiles reuse the setups and batches the training
+    # phases timed; the bf16 FRVSR split comes from fit's window.
+    step_ms = {n: {d: r[d]["step_ms"] for d in ("float32", "bfloat16")}
+               for n, r in (("train", train), ("gan", gan))}
+    train_setups = train.pop("setups")
     train_prof = profile_train(
-        torch, args.seed, device,
-        {d: train[d]["step_ms"] for d in ("float32", "bfloat16")})
-    gan_prof = profile_train(
-        torch, args.seed, device,
-        {d: gan[d]["step_ms"] for d in ("float32", "bfloat16")}, "gan",
-        lambda dtype: build_gan(torch, gan_config("unused", dtype),
-                                args.seed, device))
+        torch, {"float32": train_setups.pop("float32")}, train["batch"],
+        args.seed, step_ms["train"])
+    gan_prof = profile_train(torch, gan.pop("setups"), gan["batch"],
+                             args.seed, step_ms["gan"], "gan")
     with tempfile.TemporaryDirectory() as fit_dir:
-        fit_kernels, _ = profile_fit(torch, args.seed, device, fit_dir)
+        fit_kernels, _, train_prof["bfloat16"] = profile_fit(
+            torch, train_setups.pop("bfloat16"), train["batches"][:2],
+            args.seed, fit_dir, step_ms["train"]["bfloat16"])
     mark("training profiles")
     paths.clear()
     batched.clear()
@@ -3580,6 +3871,7 @@ def main() -> int:
                **{f"native {n} step.pt2 (trace)": t["launches"]
                   for n, t in nat["tiers"].items()},
                "gan play (one prediction, f32)": (gan["play_k1"], 0),
+               "lifecycle drift_1000 (3 engines)": life["launches"],
                **{name: (spatial[name]["k1"], spatial[name]["k2"])
                   for name in spatial}}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
@@ -3709,6 +4001,22 @@ def main() -> int:
             f"{p['busy_ms']:.2f} ms (idle share {p['idle_share']:.3f}), "
             f"discriminator trained {t['discr_steps']} of {t['steps']} "
             f"steps on {card}")
+    u8 = life["drift"]["u8_state_vs_float"]
+    log(f"lifecycle (the quality tools at full width, flow 64x10, generator "
+        f"64x24): eval_synth on phase_train's checkpoint model / bilinear "
+        f"{life['psnr'][0]:.2f} / {life['psnr'][1]:.2f} dB (CPU "
+        f"{life['psnr_cpu'][0]:.2f} / {life['psnr_cpu'][1]:.2f}), zero-init "
+        f"{life['zero_init'][0]:.2f} / {life['zero_init'][1]:.2f}, u8 state "
+        f"{life['u8_state'][0]:.2f} / {life['u8_state'][1]:.2f}, ping-pong "
+        f"{life['pingpong']:.3f} u8 steps; 270x480 model / bilinear "
+        f"{life['fullres'][0]:.2f} / {life['fullres'][1]:.2f} dB; "
+        f"bn_recalibrate set {life['bn_changed']} moving statistics; "
+        f"drift_1000 in {life['drift_s']:.1f} s: u8 state vs float mean "
+        f"{u8['mean_u8_steps_overall']:.4f}, pooled p99 "
+        f"{u8['p99_u8_steps_overall']}, max {u8['max_u8_steps_overall']}, "
+        f"stream vs clip max "
+        f"{max(life['drift']['stream_vs_clip_max_u8'].values())}; phase "
+        f"{life['seconds']:.1f} s on {card}")
     fit2, fit0 = doors["fit"], doors["fit_workers0"]
     log(f"doors (flow 64x10, generator 64x24, batch {TRAIN_BATCH}, T = "
         f"{TRAIN_T}, crop {TRAIN_CROP}, TFRecords of PNG frames): loader "

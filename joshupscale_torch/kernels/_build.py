@@ -219,16 +219,19 @@ def ops_path() -> Path:
     return BUILD_DIR / f"libjoshupscale_ops-{digest.hexdigest()[:12]}.so"
 
 
-def build_ops() -> Path:
+def build_ops(also: Iterable[str] = ()) -> Path:
     """Build the op library if it is not up to date and return its path.
 
     The unit compiles while ``nvcc`` builds the two kernels' libraries
     (with a CUDA torch), then links against them (``DT_NEEDED`` by name,
-    found through ``$ORIGIN``).  A failed build raises."""
+    found through ``$ORIGIN``).  ``also`` names more ``csrc/*.cu``
+    sources for the same ``nvcc`` batch.  A failed build raises."""
     import torch
 
     out = ops_path()
     if out.exists():
+        if torch.version.cuda:
+            build_all(also)
         return out
     cxx = host_cxx()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -239,7 +242,7 @@ def build_ops() -> Path:
     kernels = []
     try:
         if torch.version.cuda:
-            build_all(OPS_KERNELS)
+            build_all(sorted(set(OPS_KERNELS) | set(also)))
             kernels = ["-L", str(BUILD_DIR), "-Wl,-rpath,$ORIGIN",
                        *(f"-l:{_lib_path(n).name}" for n in OPS_KERNELS)]
     finally:

@@ -16,5 +16,17 @@ into an ONNX graph), ``onnx_verify`` (export a package, run the graph
 against ``Engine``), ``upscale_images`` (an image sequence through a
 package or its ``--onnx`` graph) and ``make_model_set`` (the OBS
 plugin's four packages and mask); ``val_data`` holds what the
-calibration tools share.
+calibration and quality tools share.
+
+The model-quality tools, each the port of ``tools/<name>.py``:
+``make_synth_dataset`` (the synthetic pan / zoom video set, PNG or
+TFRecords) and ``keras_vgg_to_npz`` (Keras VGG19 h5 weights to the
+perceptual loss's npz) on the host; ``bn_recalibrate`` (moving
+statistics from the training forward), ``eval_synth`` (held-out PSNR
+against bilinear x4, VGG distance, ping-pong L1), ``eval_serving_fullres``
+(the same at 480x270), ``drift_1000`` (u8 state against float state and
+stream against clip over 1000 frames) and ``gan_soak`` (the full-width
+GAN step's loss path) on the card unless ``--cpu``; ``learning_run``
+chains them into the learning protocol (render, train, recalibrate,
+evaluate).
 """

@@ -1,7 +1,8 @@
-"""What the calibration tools share: the rendered validation sequences
-(``<data>/val/{lr,hr}/*.png``, ten-frame groups), PSNR, and the two
-resnet architectures they build.  The port's copy of
-``tools/eval_synth.py``'s ``load_sequences`` and ``psnr``."""
+"""What the calibration and quality tools share: the rendered validation
+sequences (``<data>/val/{lr,hr}/*.png``, ten-frame groups), PSNR, the
+bilinear x4 baseline and the two resnet architectures they build.  The
+port's copy of ``tools/eval_synth.py``'s ``load_sequences`` and
+``psnr``."""
 
 from __future__ import annotations
 
@@ -35,6 +36,33 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) / 255.0
                    - b.astype(np.float64) / 255.0) ** 2)
     return float(-10.0 * np.log10(mse))
+
+
+def report_psnrs(text: str):
+    """(model, bilinear) PSNR dB from the report ``eval_synth`` or
+    ``eval_serving_fullres`` prints."""
+    import re
+
+    found = dict(re.findall(r"(model|bilinear) +PSNR: (-?[0-9.]+) dB",
+                            text))
+    return float(found["model"]), float(found["bilinear"])
+
+
+def bilinear_x4_u8(lr: np.ndarray, device) -> np.ndarray:
+    """The no-model baseline: u8 frames (..., H, W, 3) upscaled x4 by
+    the TF1 bilinear grid (the generator's skip), float32 on ``device``
+    without TF32, back to u8 as the reference's tools round it."""
+    import torch
+
+    from joshupscale_torch.ops.resize import upscale_bilinear
+    from joshupscale_torch.training.trainer import exact_float32
+
+    lead, (h, w) = lr.shape[:-3], lr.shape[-3:-1]
+    x = lr.reshape(-1, h, w, 3).astype(np.float32) / 255.0 - 0.5
+    with exact_float32():
+        up = upscale_bilinear(torch.from_numpy(x).to(device), 4)
+    up = np.clip((up.cpu().numpy() + 0.5) * 255.0, 0, 255).astype(np.uint8)
+    return up.reshape(*lead, 4 * h, 4 * w, 3)
 
 
 def arch_config(arch: str, h: int, w: int,

@@ -77,12 +77,18 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
+def load_config(path: str) -> Dict[str, Any]:
+    """A training config file (``models``, the datasets, ``train``,
+    ``export``) as a dict."""
     import yaml  # only the CLI reads YAML
 
-    with open(args.config) as f:
-        config = yaml.safe_load(f)
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    config = load_config(args.config)
     return train(config, seed=args.seed, num_devices=args.num_devices,
                  device="cpu" if args.cpu else None)
 

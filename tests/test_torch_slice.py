@@ -266,7 +266,14 @@ def test_port_imports_no_jax():
             " joshupscale_torch.export.onnx_export,"
             " joshupscale_torch.export.onnx_interp,"
             " joshupscale_torch.export.onnx_torch,"
-            " joshupscale_torch.export.importer\n"
+            " joshupscale_torch.export.importer,"
+            " joshupscale_torch.tools.make_synth_dataset,"
+            " joshupscale_torch.tools.keras_vgg_to_npz,"
+            " joshupscale_torch.tools.bn_recalibrate,"
+            " joshupscale_torch.tools.eval_synth,"
+            " joshupscale_torch.tools.eval_serving_fullres,"
+            " joshupscale_torch.tools.drift_1000,"
+            " joshupscale_torch.tools.gan_soak\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'joshupscale_tpu', 'yaml', 'tensorflow',"
             " 'h5py', 'cv2', 'PIL')]\n"
