@@ -2840,10 +2840,12 @@ def native_installed(host, out_dir, package, frames_path, want):
 def native_trace(torch, name, step, model, k1_per_frame, frames, device):
     """A profiled run of the loaded artifact ``step`` must launch
     ``k1_per_frame`` K1 + 1 K2, counted by kernel name in the trace
-    (``counted_session``); the int8 products are counted and every
-    kernel's time summed by part too.  Returns the counts, the device ms
-    a frame, the parts and the int8 products."""
+    (``counted_session``); the int8 products are counted and the
+    device's busy time split by part too (``timing.busy_parts``).
+    Returns the counts, the device ms a frame, the parts and the int8
+    products."""
     from joshupscale_torch.export.package import state_leaves
+    from joshupscale_torch.tools.timing import busy_parts
 
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     state = state_leaves(model.init_state(1, device=device))
@@ -2862,9 +2864,10 @@ def native_trace(torch, name, step, model, k1_per_frame, frames, device):
         step(dev_frame, *state)
     expected = (k1_per_frame, 1)
     launches = counted_session(f"native {name}", count, expected)
-    parts = {}
-    for g, e in zip(traced["groups"], traced["events"]):
-        parts[g] = parts.get(g, 0.0) + e["dur"] / 1e3
+    # The device's busy time by part: K1 at C = 32 starts before the
+    # launch it follows ends (programmatic dependent launch), and that
+    # overlap counts once.
+    parts = busy_parts(traced["events"], kernel_group)
     device_ms = sum(parts.values())
     gemms = traced["groups"].count(INT8_GEMM)
     log(f"native {name}: one run of the loaded artifact launches "

@@ -22,7 +22,7 @@
 //     pixels, N = C output channels, K = 9 taps x C/16 k16 steps.  A
 //     persistent CTA (one an SM) walks 8 x 16-pixel output tiles.
 //     - TMA does every copy.  One producer thread loads each tile's
-//       (8+2) x (16+2) input halo (a ring of 4) and its residual, and
+//       (8+2) x (16+2) input halo (a ring of 3) and its residual, and
 //       the weights once; the SAME padding and the ragged edges are
 //       TMA's zero fill of out-of-bound coordinates.  Every shared tile
 //       holds 128-byte rows of 64 channels (zeros past C), 128-byte
@@ -40,6 +40,36 @@
 //     - Epilogue in the tile's shared staging buffer, in place over the
 //       residual TMA brought there, then one TMA store, which clips the
 //       rows >= H and columns >= W.
+//   * bf16 at C = 32 (the fast tier's flow net, 12 launches a frame):
+//     a launch moves 16.6-24.9 MB (5.0-7.4 us) and does 2.4 GFLOP
+//     (2.4 us), so the 64-channel layout above spent half of every byte
+//     it moved through shared memory on zeros, and the launch's fixed
+//     costs (start, weights and first halo, the last tile's store) were
+//     as large as its work.  The same design, changed where that costs:
+//     - Dense rows.  Every shared tile holds 64-byte rows of the 32
+//       channels, 64-byte swizzled (CU_TENSOR_MAP_SWIZZLE_64B, descriptor
+//       layout 2): a halo is 11,520 bytes, a staging tile 8,192, the
+//       weights 18,432.  Taps stay descriptor offsets: the 64-byte
+//       swizzle (chunk bits 4-5 XOR address bits 7-8) is a function of
+//       the absolute address too, so a start at any 64-byte pixel row of
+//       a 512-byte-aligned tile reads what TMA wrote there.
+//     - A ring of 5 halos (4 tiles ahead), each residual asked for before
+//       the next halo, in 114,088 bytes: two CTAs fit an SM.
+//     - Programmatic dependent launch.  The grid is one CTA an SM, so the
+//       SM's second slot takes the next launch's CTA: each CTA lets the
+//       next launch start at once (griddepcontrol.launch_dependents),
+//       sets up its barriers, and waits for the launch before it
+//       (griddepcontrol.wait) before it reads anything global, weights,
+//       scale and offset included (the consumers read the last two
+//       straight from global memory while the first loads fly).  In a
+//       res-block chain the next conv's launch and set-up overlap this
+//       one's tail.
+//     The product is the one above at N = 32: 9 taps x 2 k16 steps x 2
+//     M-blocks of m64n32k16 a tile, both operands from shared memory, in
+//     the same tap-major, k16 order.  A from registers (ldmatrix, with or
+//     without warp shuffles that reuse a halo row across dx) was tried
+//     and ran slower on the H100 at a frame and more; its register sets
+//     also need more registers than two CTAs an SM allow.
 //   * f32: a direct CUDA-core conv (one thread per output pixel, all C
 //     outputs in registers, weights staged tap by tap) -- not on the
 //     main path, kept exact in f32.
@@ -69,8 +99,9 @@ constexpr int BT_W = 16;
 constexpr int HALO_PX = BT_W + 2;
 constexpr int CONSUMERS = 2;                        // warpgroups
 constexpr int BF16_THREADS = CONSUMERS * 128 + 32;  // + one producer warp
-constexpr int HALO_STAGES = 3;
 constexpr int SLOTS = 2 * CONSUMERS;                // staging tiles, two each
+constexpr int SM_SMEM = 233472;     // shared memory of an H100 SM, bytes
+constexpr int CTA_RESERVED = 1024;  // of it, reserved for each CTA
 
 __device__ __forceinline__ float activate(float v, int act, float alpha) {
   if (act == ACT_RELU) return fmaxf(v, 0.0f);
@@ -79,57 +110,73 @@ __device__ __forceinline__ float activate(float v, int act, float alpha) {
 
 template <int C>
 struct Geom {
-  // Every tile of shared memory holds 128-byte rows of 64 channels (zeros
-  // past C), 128-byte swizzled as TMA writes them.
-  static constexpr int ROW = HALO_PX * 128;             // halo row, bytes
-  static constexpr int HALO_BYTES = (BT_H + 2) * ROW;   // 23,040
+  // C = 48, 64: every tile of shared memory holds 128-byte rows of 64
+  // channels (zeros past C), 128-byte swizzled as TMA writes them, with a
+  // ring of 3 halos.  C = 32 (DENSE): 64-byte rows of the 32 channels,
+  // 64-byte swizzled, a ring of 5 halos, and small enough that two CTAs
+  // fit an SM.
+  static constexpr bool DENSE = C == 32;
+  static constexpr int PX = DENSE ? 64 : 128;         // a pixel's row, bytes
+  static constexpr uint32_t LAYOUT = DENSE ? 2 : 1;   // descriptor swizzle
+  static constexpr int STAGES = DENSE ? 5 : 3;        // halo ring
+  static constexpr int CTAS_PER_SM = DENSE ? 2 : 1;
+  static constexpr int ROW = HALO_PX * PX;             // halo row, bytes
+  static constexpr int HALO_BYTES = (BT_H + 2) * ROW;  // 23,040 / 11,520
   static constexpr int HALO_STRIDE = (HALO_BYTES + 1023) / 1024 * 1024;
-  static constexpr int W_BYTES = 9 * C * 128;           // 73,728 at C = 64
-  static constexpr int TILE_BYTES = BT_H * BT_W * 128;  // staging, 16,384
+  static constexpr int W_BYTES = 9 * C * PX;           // 73,728 at C = 64
+  static constexpr int TILE_BYTES = BT_H * BT_W * PX;  // staging, 16,384
   static constexpr size_t SMEM = 1024 + W_BYTES + SLOTS * TILE_BYTES +
-                                 HALO_STAGES * HALO_STRIDE +
+                                 STAGES * HALO_STRIDE +
                                  2 * C * sizeof(float) +
-                                 (1 + 2 * HALO_STAGES + 2 * SLOTS +
+                                 (1 + 2 * STAGES + 2 * SLOTS +
                                   CONSUMERS) * sizeof(uint64_t);
   static_assert(W_BYTES % 1024 == 0 && TILE_BYTES % 1024 == 0,
                 "swizzled tiles must stay 1024-byte aligned");
+  static_assert(CTAS_PER_SM * (SMEM + CTA_RESERVED) <= SM_SMEM,
+                "the CTAs an SM holds must fit its shared memory");
 };
 
 // Maps of one launch: x (halo), w (B operand), the residual and y
-// (staging tiles); all bf16 with 128-byte rows, swizzled.
+// (staging tiles); all bf16 with rows of Geom::PX bytes, swizzled.
 struct Maps {
   CUtensorMap x, w, res, y;
 };
 
 template <int C>
-__global__ void __launch_bounds__(BF16_THREADS, 1)
+__global__ void __launch_bounds__(BF16_THREADS, Geom<C>::CTAS_PER_SM)
 conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
                     const float* __restrict__ scale,
                     const float* __restrict__ offset, int has_residual,
                     int n_img, int H, int W, int act, float alpha) {
   using G = Geom<C>;
+  constexpr int STAGES = G::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* ws = jt::align1024(smem_raw);
   unsigned char* outs = ws + G::W_BYTES;
   unsigned char* halo = outs + SLOTS * G::TILE_BYTES;
-  float* s_scale =
-      reinterpret_cast<float*>(halo + HALO_STAGES * G::HALO_STRIDE);
+  float* s_scale = reinterpret_cast<float*>(halo + STAGES * G::HALO_STRIDE);
   float* s_offset = s_scale + C;
   uint64_t* wbar = reinterpret_cast<uint64_t*>(s_offset + C);
-  uint64_t* full = wbar + 1;                    // halo landed
-  uint64_t* halo_free = full + HALO_STAGES;     // products done with it
-  uint64_t* res_full = halo_free + HALO_STAGES;  // residual in a staging tile
+  uint64_t* full = wbar + 1;                     // halo landed
+  uint64_t* halo_free = full + STAGES;           // products done with it
+  uint64_t* res_full = halo_free + STAGES;       // residual in a staging tile
   uint64_t* out_free = res_full + SLOTS;         // store done reading it
   uint64_t* turn = out_free + SLOTS;             // a warpgroup's turn to issue
 
   const int tid = threadIdx.x;
-  for (int i = tid; i < C; i += BF16_THREADS) {
-    s_scale[i] = scale[i];
-    s_offset[i] = offset[i];
+  if constexpr (G::DENSE) {
+    // Launched with programmatic dependent launch: the next launch's CTAs
+    // may take this SM's second slot now and set up while this one works.
+    jt::griddep_launch_dependents();
+  } else {
+    for (int i = tid; i < C; i += BF16_THREADS) {
+      s_scale[i] = scale[i];
+      s_offset[i] = offset[i];
+    }
   }
   if (tid == 0) {
     jt::mbar_init(wbar, 1);
-    for (int s = 0; s < HALO_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       jt::mbar_init(&full[s], 1);
       jt::mbar_init(&halo_free[s], 1);
     }
@@ -141,11 +188,15 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
     jt::mbar_init_fence();
   }
   __syncthreads();
+  // Nothing global is read before the launch this one follows has
+  // completed: it may have written any operand.  Then the producer's
+  // loads go out at once, and the consumers read scale and offset
+  // straight from global memory meanwhile.
+  if constexpr (G::DENSE) jt::griddep_wait();
 
   // This CTA's tiles, k = 0, 1, ...: tile blockIdx.x + k gridDim.x, taken
   // by warpgroup k % 2 as its tile i = k / 2, its halo in stage
-  // k % HALO_STAGES, its residual and output in staging slot
-  // 2 (k % 2) + i % 2.
+  // k % STAGES, its residual and output in staging slot 2 (k % 2) + i % 2.
   const int tiles_y = (H + BT_H - 1) / BT_H;
   const int tiles_x = (W + BT_W - 1) / BT_W;
   const int num_tiles = n_img * tiles_y * tiles_x;
@@ -166,29 +217,38 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
       jt::mbar_expect_tx(wbar, G::W_BYTES);
       jt::tma_load_3d(ws, &maps.w, wbar, 0, 0, 0);
       auto load_halo = [&](int k) {
-        const int s = k % HALO_STAGES;
-        jt::mbar_wait(&halo_free[s], ((k / HALO_STAGES) & 1) ^ 1);
+        const int s = k % STAGES;
+        jt::mbar_wait(&halo_free[s], ((k / STAGES) & 1) ^ 1);
         int img, ty0, tx0;
         origin(k, img, ty0, tx0);
         jt::mbar_expect_tx(&full[s], G::HALO_BYTES);
         jt::tma_load_4d(halo + s * G::HALO_STRIDE, &maps.x, &full[s], 0,
                         tx0 - 1, ty0 - 1, img);
       };
-      // Halos run two tiles ahead of residuals: a residual waits for the
-      // store from its staging slot two of its warpgroup's tiles back, a
-      // halo only for the products of the tile before.
-      for (int k = 0; k < 2 && k < n_local; ++k) load_halo(k);
+      auto load_residual = [&](int k) {
+        const int i = k / CONSUMERS;
+        const int slot = 2 * (k % CONSUMERS) + (i & 1);
+        jt::mbar_wait(&out_free[slot], ((i >> 1) & 1) ^ 1);
+        int img, ty0, tx0;
+        origin(k, img, ty0, tx0);
+        jt::mbar_expect_tx(&res_full[slot], G::TILE_BYTES);
+        jt::tma_load_4d(outs + slot * G::TILE_BYTES, &maps.res,
+                        &res_full[slot], 0, tx0, ty0, img);
+      };
+      // Halos run STAGES - 1 tiles ahead of residuals: halo k + STAGES - 1
+      // waits for the products of tile k - 1, residual k for the store
+      // from its staging slot two of its warpgroup's tiles back (freed
+      // after the products of tile k - 2).  At C = 32 the residual goes
+      // first, so it is not queued behind the later wait.
+      constexpr int LEAD = STAGES - 1;
+      for (int k = 0; k < LEAD && k < n_local; ++k) load_halo(k);
       for (int k = 0; k < n_local; ++k) {
-        if (k + 2 < n_local) load_halo(k + 2);
-        if (has_residual) {
-          const int i = k / CONSUMERS;
-          const int slot = 2 * (k % CONSUMERS) + (i & 1);
-          jt::mbar_wait(&out_free[slot], ((i >> 1) & 1) ^ 1);
-          int img, ty0, tx0;
-          origin(k, img, ty0, tx0);
-          jt::mbar_expect_tx(&res_full[slot], G::TILE_BYTES);
-          jt::tma_load_4d(outs + slot * G::TILE_BYTES, &maps.res,
-                          &res_full[slot], 0, tx0, ty0, img);
+        if constexpr (G::DENSE) {
+          if (has_residual) load_residual(k);
+          if (k + LEAD < n_local) load_halo(k + LEAD);
+        } else {
+          if (k + LEAD < n_local) load_halo(k + LEAD);
+          if (has_residual) load_residual(k);
         }
       }
     }
@@ -204,14 +264,19 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
   const int lane = wt & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
+  // The 16-byte chunk j of this thread's pixel rows (pixel 8m + g of a
+  // staging row) sits at chunk j ^ swz of the swizzled row.
+  const int swz = G::DENSE ? (g >> 1) & 3 : g;
   const uint32_t w0 = jt::smem_addr(ws);
   // This thread's output channels are 8j + 2t, +1: their scale and offset
   // stay in registers.
+  const float* sc_src = G::DENSE ? scale : s_scale;
+  const float* of_src = G::DENSE ? offset : s_offset;
   float2 sc[C / 8], of[C / 8];
 #pragma unroll
   for (int j = 0; j < C / 8; ++j) {
-    sc[j] = *reinterpret_cast<const float2*>(s_scale + j * 8 + t * 2);
-    of[j] = *reinterpret_cast<const float2*>(s_offset + j * 8 + t * 2);
+    sc[j] = *reinterpret_cast<const float2*>(sc_src + j * 8 + t * 2);
+    of[j] = *reinterpret_cast<const float2*>(of_src + j * 8 + t * 2);
   }
   float acc[2][C / 2];
 #pragma unroll
@@ -224,9 +289,9 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
   for (int k = wg; k < n_local; k += CONSUMERS, ++i) {
     int img, ty0, tx0;
     origin(k, img, ty0, tx0);
-    const int stage = k % HALO_STAGES;
+    const int stage = k % STAGES;
 
-    jt::mbar_wait(&full[stage], (k / HALO_STAGES) & 1);
+    jt::mbar_wait(&full[stage], (k / STAGES) & 1);
     jt::mbar_wait(&turn[wg], wg == 0 ? (i & 1) ^ 1 : i & 1);
     const uint32_t h0 = jt::smem_addr(halo + stage * G::HALO_STRIDE);
     jt::fence_operands(acc[0]);
@@ -239,15 +304,16 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
 #pragma unroll
       for (int kk = 0; kk < C / 16; ++kk) {
         // B: the C output channels x 16 input channels of this tap.
-        const uint64_t b = jt::make_desc(w0 + tap * C * 128 + kk * 32, 0,
-                                         1024);
+        const uint64_t b = jt::make_desc(w0 + tap * C * G::PX + kk * 32, 0,
+                                         8 * G::PX, G::LAYOUT);
 #pragma unroll
         for (int m = 0; m < 2; ++m) {
           // A: M-block m's 8 rows x 8 pixels, shifted by the tap: dy halo
-          // rows, dx 128-byte pixel rows (the swizzle follows the
-          // absolute address, so any whole row is a valid start).
+          // rows, dx pixel rows (the swizzle follows the absolute
+          // address, so any whole pixel row is a valid start).
           const uint64_t a = jt::make_desc(
-              h0 + dy * G::ROW + (m * 8 + dx) * 128 + kk * 32, 0, G::ROW);
+              h0 + dy * G::ROW + (m * 8 + dx) * G::PX + kk * 32, 0, G::ROW,
+              G::LAYOUT);
           jt::wgmma<C, 0>(acc[m], a, b, (tap | kk) != 0);
         }
       }
@@ -272,14 +338,15 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
     // Epilogue in the staging tile, in place over the residual: the
     // accumulator row 16 warp + g + 8 half of M-block m is pixel
     // (2 warp + half, 8 m + g) of the 8 x 16 tile; d[4j + 2 half + e] is
-    // channel 8j + 2t + e, whose 16-byte chunk j sits at chunk j ^ g of
-    // the pixel's swizzled 128-byte row.
+    // channel 8j + 2t + e, whose 16-byte chunk j sits at chunk j ^ swz
+    // of the pixel's swizzled row.
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        unsigned char* row =
-            tile_out + ((warp * 2 + half) * BT_W + m * 8 + g) * 128 + t * 4;
+        unsigned char* row = tile_out +
+                             ((warp * 2 + half) * BT_W + m * 8 + g) * G::PX +
+                             t * 4;
         // All of the row's residual loads go ahead of its stores, which
         // the compiler may not reorder across.
         __nv_bfloat162 res[C / 8];
@@ -287,7 +354,7 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
 #pragma unroll
           for (int j = 0; j < C / 8; ++j)
             res[j] = *reinterpret_cast<const __nv_bfloat162*>(
-                row + ((j ^ g) << 4));
+                row + ((j ^ swz) << 4));
         }
 #pragma unroll
         for (int j = 0; j < C / 8; ++j) {
@@ -297,7 +364,7 @@ conv3x3_bf16_kernel(const __grid_constant__ Maps maps,
             v0 += __bfloat162float(res[j].x);
             v1 += __bfloat162float(res[j].y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(row + ((j ^ g) << 4)) =
+          *reinterpret_cast<__nv_bfloat162*>(row + ((j ^ swz) << 4)) =
               __floats2bfloat162_rn(activate(v0, act, alpha),
                                     activate(v1, act, alpha));
         }
@@ -387,36 +454,65 @@ cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
                         int n, int h, int wd, int act, float alpha,
                         cudaStream_t stream) {
   using G = Geom<C>;
+  constexpr uint32_t BOX_C = G::PX / 2;  // channels a box row holds
+  constexpr CUtensorMapSwizzle SWIZZLE =
+      G::DENSE ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   Maps maps = {};
   // x (n, h, wd, C): a box is one tile's (8+2) x (16+2) halo.
   const uint64_t x_dims[4] = {C, uint64_t(wd), uint64_t(h), uint64_t(n)};
   const uint64_t x_strides[4] = {2, C * 2, uint64_t(wd) * C * 2,
                                  uint64_t(h) * wd * C * 2};
-  const uint32_t x_box[4] = {64, HALO_PX, BT_H + 2, 1};
-  // w OHWI (C, 3, 3, C) seen as [tap][co][ci]: 128-byte rows of 64 input
+  const uint32_t x_box[4] = {BOX_C, HALO_PX, BT_H + 2, 1};
+  // w OHWI (C, 3, 3, C) seen as [tap][co][ci]: rows of BOX_C input
   // channels (zeros past C), swizzled: the K-major B operand.
   const uint64_t w_dims[3] = {C, C, 9};
   const uint64_t w_strides[3] = {2, 9 * C * 2, C * 2};
-  const uint32_t w_box[3] = {64, C, 9};
+  const uint32_t w_box[3] = {BOX_C, C, 9};
   // Residual and y (n, h, wd, C): a box is one 8 x 16-pixel tile.
   const uint64_t t_dims[4] = {C, uint64_t(wd), uint64_t(h), uint64_t(n)};
   const uint64_t t_strides[4] = {2, C * 2, uint64_t(wd) * C * 2,
                                  uint64_t(h) * wd * C * 2};
-  const uint32_t t_box[4] = {64, BT_W, BT_H, 1};
+  const uint32_t t_box[4] = {BOX_C, BT_W, BT_H, 1};
   cudaError_t e =
-      jt::encode_bf16(&maps.x, x, 4, x_dims, x_strides, x_box);
+      jt::encode_bf16(&maps.x, x, 4, x_dims, x_strides, x_box, SWIZZLE);
   if (e == cudaSuccess)
-    e = jt::encode_bf16(&maps.w, w, 3, w_dims, w_strides, w_box);
+    e = jt::encode_bf16(&maps.w, w, 3, w_dims, w_strides, w_box, SWIZZLE);
   if (e == cudaSuccess)
-    e = jt::encode_bf16(&maps.y, y, 4, t_dims, t_strides, t_box);
+    e = jt::encode_bf16(&maps.y, y, 4, t_dims, t_strides, t_box, SWIZZLE);
   if (e == cudaSuccess && residual != nullptr)
-    e = jt::encode_bf16(&maps.res, residual, 4, t_dims, t_strides, t_box);
+    e = jt::encode_bf16(&maps.res, residual, 4, t_dims, t_strides, t_box,
+                        SWIZZLE);
   if (e != cudaSuccess) return e;
   static int grid_cap[MAX_DEVICES] = {};
   const int cap = jt::persistent_grid(conv3x3_bf16_kernel<C>, BF16_THREADS,
                                       G::SMEM, grid_cap, MAX_DEVICES, &e);
   if (cap == 0) return e;
   const int tiles = n * ((h + BT_H - 1) / BT_H) * ((wd + BT_W - 1) / BT_W);
+  if constexpr (G::DENSE) {
+    // One CTA an SM; the SM's second slot takes the next launch's CTA
+    // (programmatic dependent launch), which sets up while this one ends.
+    static int sm_count[MAX_DEVICES] = {};
+    int dev = 0;
+    e = cudaGetDevice(&dev);  // below MAX_DEVICES: persistent_grid checked
+    if (e == cudaSuccess && sm_count[dev] == 0)
+      e = cudaDeviceGetAttribute(&sm_count[dev],
+                                 cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr.val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(tiles < sm_count[dev] ? tiles : sm_count[dev]);
+    config.blockDim = dim3(BF16_THREADS);
+    config.dynamicSmemBytes = G::SMEM;
+    config.stream = stream;
+    config.attrs = &attr;
+    config.numAttrs = 1;
+    e = cudaLaunchKernelEx(&config, conv3x3_bf16_kernel<C>, maps, scale,
+                           offset, int(residual != nullptr), n, h, wd, act,
+                           alpha);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  }
   const int grid = tiles < cap ? tiles : cap;
   conv3x3_bf16_kernel<C><<<grid, BF16_THREADS, G::SMEM, stream>>>(
       maps, scale, offset, residual != nullptr, n, h, wd, act, alpha);

@@ -2,15 +2,18 @@
 // P1 (probe_dot.cu) and P2 (probe_patch_dot.cu): wgmma shared-memory
 // descriptors and the m64nNk16 bf16 -> f32 product (A from shared memory,
 // or at n64 from registers), mbarrier waits, TMA (cp.async.bulk.tensor)
-// tiled loads and stores, host-side CUtensorMap encoding, and the
-// shared-address and persistent-grid helpers.
+// tiled loads and stores, programmatic dependent launch, host-side
+// CUtensorMap encoding, and the shared-address and persistent-grid
+// helpers.
 //
 // Descriptors (PTX ISA, "matrix descriptor"; all offsets in bytes, stored
 // >> 4): bits 0-13 start address, 16-29 leading byte offset (LBO), 32-45
-// stride byte offset (SBO), 62-63 layout (1: 128-byte swizzle).
-// A core matrix is 8 rows of 16 bytes (8 bf16).  Both kernels use
-// 128-byte swizzled tiles as TMA writes them (CU_TENSOR_MAP_SWIZZLE_128B,
-// box rows of 64 bf16 = 128 bytes):
+// stride byte offset (SBO), 62-63 layout (1: 128-byte swizzle, 2: 64-byte
+// swizzle).  A core matrix is 8 rows of 16 bytes (8 bf16).  The kernels
+// use 128-byte swizzled tiles as TMA writes them (CU_TENSOR_MAP_SWIZZLE_128B,
+// box rows of 64 bf16 = 128 bytes); K1 at C = 32 uses 64-byte rows, 64-byte
+// swizzled (the same scheme with rows of 4 chunks, chunk bits 4-5 XOR
+// address bits 7-8; SBO steps 8 rows of 64 bytes, 512 bytes):
 //   * K-major (A, and K1's B): rows are 128 bytes of K; SBO steps 8 rows
 //     (1024 bytes when the rows are contiguous), LBO is unused; the k16
 //     steps inside a row are +32 bytes on the start address.
@@ -50,12 +53,14 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// The descriptor of a 128-byte swizzled operand starting at `saddr`.
+// The descriptor of a swizzled operand starting at `saddr`; `layout` 1:
+// 128-byte swizzle, 2: 64-byte swizzle.
 __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = 1) {
   return uint64_t((saddr & 0x3FFFF) >> 4) |
          (uint64_t((lbo >> 4) & 0x3FFF) << 16) |
-         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+         (uint64_t((sbo >> 4) & 0x3FFF) << 32) | (uint64_t(layout) << 62);
 }
 
 // ------------------------------------------------------------- wgmma
@@ -363,6 +368,20 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Programmatic dependent launch (a launch with the attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization): once every CTA of
+// this grid has called griddep_launch_dependents (or exited), the next
+// such launch in the stream may start its CTAs; griddep_wait returns when
+// the grids this one depends on have completed and their writes are
+// visible (at once if there are none).
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Barrier `id` (1..15) over `threads` threads (a multiple of 32).
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
@@ -435,13 +454,15 @@ inline EncodeTiledFn encode_tiled_fn() {
 // A bf16 tensor map of `rank` (<= 5) dimensions, innermost first: dims[i]
 // elements, strides[i] bytes (strides[0], of the innermost dimension, is
 // the element size and not passed on), a box of box[i] elements whose
-// rows (box[0] = 64, 128 bytes) land 128-byte swizzled.  A box may reach
-// past the tensor: loads fill zeros there, stores skip it.
+// rows land swizzled: box[0] = 64 (128 bytes) with the default 128-byte
+// swizzle, box[0] = 32 (64 bytes) with CU_TENSOR_MAP_SWIZZLE_64B.  A box
+// may reach past the tensor: loads fill zeros there, stores skip it.
 // Returns cudaErrorInvalidValue if the driver refuses it (a base address
 // or stride that is not a multiple of 16 bytes, a box too large).
-inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
-                               const uint64_t* dims, const uint64_t* strides,
-                               const uint32_t* box) {
+inline cudaError_t encode_bf16(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorSymbolNotFound;
   cuuint64_t gd[5], gs[4];
@@ -455,8 +476,8 @@ inline cudaError_t encode_bf16(CUtensorMap* map, const void* base, int rank,
   const CUresult r = fn(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
       const_cast<void*>(base), gd, gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -133,8 +133,9 @@ def resource_usage() -> Dict[str, list]:
             raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{log}")
         short = _demangle(log, nvcc)
         notes: Dict[str, list] = {}
-        for m in re.finditer(r"\((C\d+)\) ([^\n]*?) in function '(\w+)'",
-                             log):
+        for m in re.finditer(
+                r"\((C\d+)\) ([^\n]*?) (?:in|for) (?:the )?function '(\w+)'",
+                log):
             notes.setdefault(short[m.group(3)], []).append(
                 f"{m.group(1)} {m.group(2)}")
         rows, kernel, spill = [], None, 0

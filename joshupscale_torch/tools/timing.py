@@ -39,6 +39,24 @@ def cuda_time_ms(fn: Callable[[], object], reps: int, warmup: int = 3,
     return float(np.median(times))
 
 
+def busy_parts(events, group: Callable[[str], str]) -> dict:
+    """The time the device was busy in a trace's kernel records
+    ``events`` (``{"name", "ts", "dur"}``, µs), in ms, by
+    ``group(name)``: each record counts from the later of its start and
+    the end of every record that started before it.  A launch with
+    programmatic dependent launch (K1 at C = 32) starts before the one it
+    follows ends and waits; its overlap counts for the earlier one, so
+    the parts sum to the busy time, not to the records' durations."""
+    parts, end = {}, float("-inf")
+    for e in sorted(events, key=lambda e: e["ts"]):
+        start, stop = e["ts"], e["ts"] + e["dur"]
+        key = group(e["name"])
+        parts[key] = (parts.get(key, 0.0)
+                      + max(0.0, stop - max(start, end)) / 1e3)
+        end = max(end, stop)
+    return parts
+
+
 def card_line() -> str:
     """The card's name and power limit as ``nvidia-smi`` reports them
     (``name, power.limit``): every time is stated beside it."""

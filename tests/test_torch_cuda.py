@@ -67,11 +67,16 @@ def _operands(gen, c, dtype, shape, device):
 # (2, 19, 37) cuts across the bf16 kernel's 8 x 16 tiles on both axes,
 # (1, 5, 7) is narrower and shorter than one tile, (1, 270, 480) is the
 # serving paths' shape (H = 270 is not a multiple of 8): C = 64 on the
-# quality and PS2-style tiers, 48 (96-byte rows) on PS2-fast.
+# quality and PS2-style tiers, 48 (96-byte rows) on PS2-fast, 32 (the
+# dense 64-byte rows) in the fast tier's flow net.  At C = 32, (2, 270,
+# 480) gives each CTA 16 tiles through the ring of halos, and
+# (3, 131, 250) cuts the tiles on both axes with several tiles a CTA.
 _K1_CASES = ([(c, dt, (2, 19, 37)) for c in (32, 48, 64)
               for dt in (torch.bfloat16, torch.float32)]
              + [(c, torch.bfloat16, (1, 5, 7)) for c in (32, 48, 64)]
-             + [(c, torch.bfloat16, (1, 270, 480)) for c in (64, 48)])
+             + [(c, torch.bfloat16, (1, 270, 480)) for c in (64, 48)]
+             + [(32, torch.bfloat16, s)
+                for s in ((1, 270, 480), (2, 270, 480), (3, 131, 250))])
 
 
 @pytest.mark.parametrize("c,dtype,shape", _K1_CASES,
@@ -90,6 +95,45 @@ def test_resblock_kernel_matches_plain(gen, cuda, c, dtype, shape):
         ref = resblock_conv3x3_plain(x, w, s, t, res, act, 0.3).float()
         assert bool(((got.float() - ref).abs()
                      <= tol * (1 + ref.abs())).all())
+
+
+def test_resblock_c32_chain_in_cuda_graph(gen, cuda):
+    """A res block at C = 32 (conv_1, then conv_2 with the block's input
+    as residual: two launches chained by programmatic dependent launch)
+    captured in a CUDA graph and replayed on new inputs: each replay
+    equals the eager launches bit for bit, conv_1 is within 1/64 (1 +
+    |ref|) of the plain version, and conv_2 of the plain version on
+    conv_1's output."""
+    bf16 = torch.bfloat16
+    x, w1, s1, t1, _ = _operands(gen, 32, bf16, (1, 270, 480), cuda)
+    _, w2, s2, t2, _ = _operands(gen, 32, bf16, (1, 8, 8), cuda)
+
+    def block():
+        y = resblock_conv3x3(x, w1, s1, t1, None, "relu")
+        return y, resblock_conv3x3(y, w2, s2, t2, x, "lrelu", 0.3)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        block()  # warm-up off the capturing stream, as torch asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph, z_graph = block()
+    for _ in range(2):
+        x.copy_(torch.from_numpy(gen.standard_normal(
+            tuple(x.shape)).astype(np.float32) * 0.5))
+        graph.replay()
+        torch.cuda.synchronize()
+        y, z = block()
+        torch.cuda.synchronize()
+        assert torch.equal(y_graph, y) and torch.equal(z_graph, z)
+        for got, ref in (
+                (y, resblock_conv3x3_plain(x, w1, s1, t1, None, "relu")),
+                (z, resblock_conv3x3_plain(y, w2, s2, t2, x, "lrelu", 0.3))):
+            ref = ref.float()
+            assert bool(((got.float() - ref).abs()
+                         <= (1 + ref.abs()) / 64).all())
 
 
 def _offset(t: torch.Tensor, nbytes: int) -> torch.Tensor:
@@ -1095,7 +1139,8 @@ def test_two_worker_loader_under_a_cuda_context(cuda, tmp_path):
 # SpatialEngine: one stream's frame split by rows
 
 
-@pytest.mark.parametrize("c,shape", [(64, (1, 270, 480)), (48, (1, 37, 50))])
+@pytest.mark.parametrize("c,shape", [(64, (1, 270, 480)), (48, (1, 37, 50)),
+                                     (32, (1, 270, 480))])
 def test_resblock_kernel_on_row_slab_plus_halo(gen, cuda, c, shape):
     """K1 on (1, rows + 2, W, C) slabs with their real halo rows (fewer
     at the frame's edges) and conv_2's residual the same slab plus

@@ -95,6 +95,29 @@ def test_res_blocks_plain_bf16_matches_pallas_chain(rng, act):
                                atol=0.03, rtol=0.03)
 
 
+@pytest.mark.parametrize("act", ["relu", "lrelu"])
+def test_res_blocks_plain_bf16_c32_matches_jax(rng, act):
+    """bf16 at C=32 (the fast tier's flow net, the C the kernel lays out
+    in 64-byte rows) vs the JAX package's own bf16 res blocks (its Pallas
+    chain takes C=64 only, so the fast tier runs these), within
+    atol = rtol = 0.03 as the C=64 test above: JAX rounds the conv and
+    BN to bf16, the port keeps the epilogue in f32 and rounds once.
+    19 x 37 cuts across the kernel's 8 x 16 tiles on both axes."""
+    jp = _jax_blocks(rng, 32, seed=3)
+    names = ["block_1", "block_2"]
+    x = rng.standard_normal((1, 19, 37, 32)).astype(np.float32) * 0.5
+    ref = j_res_blocks_apply(jp, names, jnp.asarray(x, jnp.bfloat16), act,
+                             Mutables(False))
+    tp = prepare_res_blocks(from_flat_numpy(flatten_params(jp)),
+                            torch.bfloat16)
+    got = t_res_blocks_apply(tp, names,
+                             torch.from_numpy(x).to(torch.bfloat16), act)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32),
+                               atol=0.03, rtol=0.03)
+
+
 def _k1_operands(rng, c, dtype, shape=(1, 9, 20), device="cpu"):
     n, h, w = shape
     x = torch.from_numpy(
