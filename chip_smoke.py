@@ -494,7 +494,7 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     ``transform``) the CPU reference runs on the architecture cut by
     ``cut_depth``, against an engine of the same on the card."""
     from joshupscale_torch.models.registry import create_models
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
+    from joshupscale_torch.runtime.engine import BUILD_STEPS, Engine
 
     t0 = time.perf_counter()
     built = create_models(config, seed=seed)["inference"]
@@ -511,8 +511,9 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     torch.cuda.synchronize()
     k1, k2, p1, p2 = (k.launches for k in kernels)
     t = len(frames)
-    steps = WARMUP_STEPS + 1
-    log(f"{name}: engine built ({WARMUP_STEPS} warm-up steps, 1 captured) "
+    steps = BUILD_STEPS
+    log(f"{name}: engine built ({BUILD_STEPS - 2} warm-up steps, the plain "
+        f"and the marked graph captured) "
         f"and {t} frames through Engine.process (graph replays): K1 "
         f"launches={k1} ({k1 / steps:g}/step), K2 launches={k2} "
         f"({k2 / steps:g}/step), P1/P2 launches={p1}/{p2}; in the graph: "
@@ -1037,7 +1038,7 @@ def phase_parallel(torch, seed, device, keep):
     into ``keep`` for the profiler."""
     from joshupscale_torch.models.registry import create_models
     from joshupscale_torch.parallel import PipelinedEngine, ShardedEngine
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
+    from joshupscale_torch.runtime.engine import BUILD_STEPS, Engine
     from joshupscale_torch.tools import pipeline_probe
     from joshupscale_torch.tools.timing import cuda_time_ms
 
@@ -1046,7 +1047,7 @@ def phase_parallel(torch, seed, device, keep):
     frames = frames_for(FRAMES, seed)
     nf = len(frames)
     kernels = all_kernels()
-    steps = WARMUP_STEPS + 1
+    steps = BUILD_STEPS
     single = Engine(built.obj, params, device=device)
     single_ms, single_p80 = time_process(
         lambda i: single.process(frames[i % nf]))
@@ -1120,7 +1121,8 @@ def phase_parallel(torch, seed, device, keep):
     log(f"pipelined: engine built (two graphs) and 6 frames: K1 launches="
         f"{k1}, K2 launches={k2}; in the graphs: {piped.graph_launches}")
     flow_k1 = 2 * 10
-    if (k1 != K1_PER_FRAME * steps + flow_k1 or k2 != steps
+    # no marked graph: one capture fewer than an Engine's
+    if (k1 != K1_PER_FRAME * (steps - 1) + flow_k1 or k2 != steps - 1
             or piped.graph_launches["flow"]["resblock_conv3x3"] != flow_k1
             or piped.graph_launches["generator"] != {
                 "resblock_conv3x3": K1_PER_FRAME - flow_k1,
@@ -1402,7 +1404,7 @@ def serve_package(torch, name, package, seed, device):
     not clipped flat, frames against the same package on the CPU,
     replays equal to eager steps.  Returns the launches and ``(engine,
     frames)``."""
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, create_runtime
+    from joshupscale_torch.runtime.engine import BUILD_STEPS, create_runtime
 
     frames = frames_for(FRAMES, seed)
     kernels = all_kernels()
@@ -1412,7 +1414,7 @@ def serve_package(torch, name, package, seed, device):
     outs = [engine.process(f) for f in frames]
     torch.cuda.synchronize()
     k1, k2, p1, p2 = (k.launches for k in kernels)
-    steps = WARMUP_STEPS + 1
+    steps = BUILD_STEPS
     log(f"{name}: create_runtime + {len(frames)} frames through "
         f"Engine.process: K1 launches={k1} ({k1 / steps:g}/step), K2 "
         f"launches={k2} ({k2 / steps:g}/step), P1/P2 {p1}/{p2}; in the "
@@ -2071,7 +2073,7 @@ def phase_lifecycle(torch, seed, device, out_dir, checkpoint):
 
     import cv2
 
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS
+    from joshupscale_torch.runtime.engine import BUILD_STEPS
     from joshupscale_torch.tools.gan_soak import soak
     from joshupscale_torch.tools.val_data import report_psnrs
 
@@ -2147,7 +2149,7 @@ def phase_lifecycle(torch, seed, device, out_dir, checkpoint):
     out = life_tool("drift_1000", ["--source", big])
     torch.cuda.synchronize()
     k1, k2, p1, p2 = (k.launches for k in kernels)
-    steps = 3 * (WARMUP_STEPS + 1)
+    steps = 3 * BUILD_STEPS
     summary = json.loads(out.strip().splitlines()[-1])
     u8 = summary["u8_state_vs_float"]
     res.update(drift_s=time.perf_counter() - t0, drift=summary,
@@ -3213,7 +3215,7 @@ def phase_doors(torch, seed, device, out_dir):
     from joshupscale_torch.export.package import load_package
     from joshupscale_torch.export.quantize import calibrate
     from joshupscale_torch.models.registry import create_models
-    from joshupscale_torch.runtime.engine import Engine, WARMUP_STEPS
+    from joshupscale_torch.runtime.engine import BUILD_STEPS, Engine
 
     t0 = time.perf_counter()
     out_dir = os.path.join(out_dir, "doors")
@@ -3255,10 +3257,10 @@ def phase_doors(torch, seed, device, out_dir):
     log(f"doors load_trained_params (prefix 'params' of the fit's "
         f"latest.npz) through Engine: {len(frames)} frames bit for bit with "
         f"the package's: {same}; K1 {k1}, K2 {k2} "
-        f"({(k1 / (WARMUP_STEPS + 1)):g} + {k2 / (WARMUP_STEPS + 1):g} a "
+        f"({k1 / BUILD_STEPS:g} + {k2 / BUILD_STEPS:g} a "
         f"step)")
-    if not same or (k1, k2) != (K1_PER_FRAME * (WARMUP_STEPS + 1),
-                                WARMUP_STEPS + 1):
+    if not same or (k1, k2) != (K1_PER_FRAME * BUILD_STEPS,
+                                BUILD_STEPS):
         raise AssertionError("doors: load_trained_params does not serve the "
                              "package's frames")
     del loaded

@@ -131,27 +131,33 @@ def resource_usage() -> Dict[str, list]:
         log = proc.communicate()[0].decode()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc -Xptxas -v failed for {name}.cu:\n{log}")
-        short = _demangle(log, nvcc)
-        notes: Dict[str, list] = {}
-        for m in re.finditer(
-                r"\((C\d+)\) ([^\n]*?) (?:in|for) (?:the )?function '(\w+)'",
-                log):
-            notes.setdefault(short[m.group(3)], []).append(
-                f"{m.group(1)} {m.group(2)}")
-        rows, kernel, spill = [], None, 0
-        for line in log.splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                kernel, spill = short[m.group(1)], 0
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m:
-                spill = int(m.group(1))
-            m = re.search(r"Used (\d+) registers", line)
-            if m and kernel:
-                rows.append((kernel, int(m.group(1)), spill,
-                             notes.get(kernel, [])))
-        out[name] = rows
+        out[name] = ptxas_rows(log, _demangle(log, nvcc))
     return out
+
+
+def ptxas_rows(log: str, short: Dict[str, str]) -> list:
+    """[(kernel, registers, spilled bytes, notes)] of ``ptxas -v``'s
+    ``log``, each entry function by its name in ``short`` (an
+    ``extern "C"`` name, which is not mangled, by itself)."""
+    notes: Dict[str, list] = {}
+    for m in re.finditer(
+            r"\((C\d+)\) ([^\n]*?) (?:in|for) (?:the )?function '(\w+)'",
+            log):
+        notes.setdefault(short.get(m.group(3), m.group(3)), []).append(
+            f"{m.group(1)} {m.group(2)}")
+    rows, kernel, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel, spill = short.get(m.group(1), m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.append((kernel, int(m.group(1)), spill,
+                         notes.get(kernel, [])))
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from joshupscale_torch.kernels.markers import STAGES, stage_end
 from joshupscale_torch.kernels.resblock import resblock_conv3x3
 from joshupscale_torch.nn.layers import (
     activation_spec,
@@ -352,6 +353,21 @@ class WholeFrame:
 
 
 WHOLE_FRAME = WholeFrame()
+
+
+class StageMarks(WholeFrame):
+    """The whole-frame rules with a stage marker
+    (``kernels/markers.py``) launched at each of ``InferenceModel``'s
+    stage boundaries: the flow, the warp, the generator's output.
+    ``runtime.engine.Engine`` captures its marked frame graph with
+    these."""
+
+    def record(self, name: str, x):
+        which = STAGES.get(name)
+        return x if which is None else stage_end(which, x)
+
+
+STAGE_MARKS = StageMarks()
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ from joshupscale_torch.runtime.engine import (
     copy_state,
     select_output,
 )
+from joshupscale_torch.runtime.spans import span
 
 
 class PipelinedEngine(ServingIO):
@@ -130,32 +131,35 @@ class PipelinedEngine(ServingIO):
         generator device (on CUDA the generator graph's buffer, valid
         until the next frame; the frame is already in the flow graph's
         input buffer)."""
-        if self._graph is None:
-            with torch.inference_mode():
-                inter = self._flow(frame, self.flow_state)
-                inter = {k: v.to(self.gen_device) for k, v in inter.items()}
-                return self._gen(inter, self.gen_state)
-        flow_graph, gen_graph = self._graph
-        flow_stream = torch.cuda.current_stream(self.flow_device)
-        gen_stream = torch.cuda.current_stream(self.gen_device)
-        with torch.cuda.device(self.flow_device):
-            flow_graph.replay()
-            done = torch.cuda.Event()
-            done.record(flow_stream)
-        with torch.cuda.device(self.gen_device):
-            gen_stream.wait_event(done)
-            for k, buf in self._inter.items():
-                buf.copy_(self._flow_out[k], non_blocking=True)
-            self._copied.record(gen_stream)
-            gen_graph.replay()
-        return self._frame
+        with span("engine.replay"):
+            if self._graph is None:
+                with torch.inference_mode():
+                    inter = self._flow(frame, self.flow_state)
+                    inter = {k: v.to(self.gen_device)
+                             for k, v in inter.items()}
+                    return self._gen(inter, self.gen_state)
+            flow_graph, gen_graph = self._graph
+            flow_stream = torch.cuda.current_stream(self.flow_device)
+            gen_stream = torch.cuda.current_stream(self.gen_device)
+            with torch.cuda.device(self.flow_device):
+                flow_graph.replay()
+                done = torch.cuda.Event()
+                done.record(flow_stream)
+            with torch.cuda.device(self.gen_device):
+                gen_stream.wait_event(done)
+                for k, buf in self._inter.items():
+                    buf.copy_(self._flow_out[k], non_blocking=True)
+                self._copied.record(gen_stream)
+                gen_graph.replay()
+            return self._frame
 
     # -- streaming ---------------------------------------------------------
 
     def reset(self) -> None:
         """Restore both stages' initial state (new stream / seek)."""
-        self._drain()
-        copy_state(self.flow_state, self.model.init_state(
-            self.batch_size, device=self.flow_device))
-        copy_state(self.gen_state, self.model.init_state(
-            self.batch_size, device=self.gen_device))
+        with span("engine.reset"):
+            self._drain()
+            copy_state(self.flow_state, self.model.init_state(
+                self.batch_size, device=self.flow_device))
+            copy_state(self.gen_state, self.model.init_state(
+                self.batch_size, device=self.gen_device))

@@ -14,7 +14,6 @@ engines on one card), and ``"cpu"`` entries run the plain versions.
 
 from __future__ import annotations
 
-import time
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -29,6 +28,7 @@ from joshupscale_torch.models.fnet import (
 from joshupscale_torch.models.inference import InferenceModel
 from joshupscale_torch.parallel.rows import Rows, Split, param_copies
 from joshupscale_torch.runtime.engine import Engine, _deferred, select_output
+from joshupscale_torch.runtime.spans import span
 
 
 def cuda_devices() -> list:
@@ -63,22 +63,25 @@ class ShardedEngine:
                 self.model.frame_width, 3)
 
     def reset(self) -> None:
-        for engine in self.engines:
-            engine.reset()
+        with span("engine.reset"):
+            for engine in self.engines:
+                engine.reset()
 
     def process(self, frames: np.ndarray) -> np.ndarray:
         """One step for ALL streams: (B, H, W, 3) -> (B, 4H, 4W, 3).
 
         Every engine's step is enqueued before any output is copied
         back, so the devices run side by side."""
-        frames = np.asarray(frames)
-        if frames.shape != self.input_shape:
-            raise ValueError(f"Invalid frames shape {frames.shape}; "
-                             f"expected {self.input_shape}")
-        s = self.streams_per_device
-        outs = [engine._serve(engine._as_input(frames[i * s:(i + 1) * s]))
-                for i, engine in enumerate(self.engines)]
-        return np.concatenate([o.cpu().numpy() for o in outs])
+        with span("engine.process"):
+            frames = np.asarray(frames)
+            if frames.shape != self.input_shape:
+                raise ValueError(f"Invalid frames shape {frames.shape}; "
+                                 f"expected {self.input_shape}")
+            s = self.streams_per_device
+            outs = [engine._serve(engine._as_input(frames[i * s:(i + 1) * s]))
+                    for i, engine in enumerate(self.engines)]
+            with span("engine.readback"):
+                return np.concatenate([o.cpu().numpy() for o in outs])
 
 
 def _canonical(device: torch.device) -> torch.device:
@@ -147,7 +150,6 @@ class SpatialEngine:
         self.params = [prepared[d] for d in self.devices]
         self.rows = Rows(self.split, param_copies(self.params), self._tap)
         self.frames_processed = 0
-        self.total_process_seconds = 0.0
         self.reset()
 
     def _tap(self, name: str, whole) -> None:
@@ -167,35 +169,40 @@ class SpatialEngine:
         """Restore ``init_state`` (new stream / seek), split by rows:
         ``pre_gen`` on the frame's slabs (of the HR grid in pixel
         mode), the last frames on the flow net's."""
-        state = self.model.init_state(1, device="cpu")
-        if not state:
-            self.state = {}
-            return
-        pre_split = self.split if self.model.s2d_mode else self.split.scaled(4)
-        self.state = {
-            "pre_gen": pre_split.scatter(state["pre_gen"]),
-            "last_frames": [self.flow_split.scatter(f)
-                            for f in state["last_frames"]],
-        }
+        with span("engine.reset"):
+            state = self.model.init_state(1, device="cpu")
+            if not state:
+                self.state = {}
+                return
+            pre_split = (self.split if self.model.s2d_mode
+                         else self.split.scaled(4))
+            self.state = {
+                "pre_gen": pre_split.scatter(state["pre_gen"]),
+                "last_frames": [self.flow_split.scatter(f)
+                                for f in state["last_frames"]],
+            }
 
     def process(self, frame: np.ndarray) -> np.ndarray:
         """One frame, (H, W, 3) or (1, H, W, 3) u8 (float with
         ``skip_processing``) -> the (4H, 4W, 3) display frame."""
-        start = time.perf_counter()
-        frame = np.asarray(frame)
-        if frame.ndim == 3:
-            frame = frame[None]
-        if frame.shape != self.input_shape:
-            raise ValueError(f"Invalid frame shape {frame.shape}; expected "
-                             f"{self.input_shape}")
-        with torch.inference_mode():
-            outputs, self.state = self.model.apply(
-                self.params[0], self.split.scatter(torch.from_numpy(frame)),
-                self.state, self.rows)
-            out = select_output(self.model, outputs)
-            if self._deferred:
-                out = self.rows.map(d2s_display_u8, out)
-            result = np.concatenate([o.cpu().numpy() for o in out], axis=1)
-        self.frames_processed += 1
-        self.total_process_seconds += time.perf_counter() - start
-        return result[0]
+        with span("engine.process"), torch.inference_mode():
+            with span("engine.stage_copy"):
+                frame = np.asarray(frame)
+                if frame.ndim == 3:
+                    frame = frame[None]
+                if frame.shape != self.input_shape:
+                    raise ValueError(f"Invalid frame shape {frame.shape}; "
+                                     f"expected {self.input_shape}")
+            with span("engine.h2d"):
+                slabs = self.split.scatter(torch.from_numpy(frame))
+            with span("engine.replay"):
+                outputs, self.state = self.model.apply(
+                    self.params[0], slabs, self.state, self.rows)
+                out = select_output(self.model, outputs)
+                if self._deferred:
+                    out = self.rows.map(d2s_display_u8, out)
+            with span("engine.readback"):
+                result = np.concatenate([o.cpu().numpy() for o in out],
+                                        axis=1)
+            self.frames_processed += 1
+            return result[0]

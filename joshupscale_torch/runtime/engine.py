@@ -31,6 +31,15 @@ the graph; a failed capture raises, with no eager fallback.  On the CPU
 the same functions run eagerly.  The host side (the frame checks, the
 pinned staging ring, ``process`` / ``process_async`` / ``process_clip``)
 is ``ServingIO``, which the pipelined engine shares.
+
+Profiling: every call opens the host spans of ``runtime/spans.py``
+while a ``torch.profiler`` session is active.  A replay made then runs a
+second frame graph, captured with the plain one on the same input buffer
+and state: the same step with an empty marker kernel at the end of the
+flow net, the warp and the generator (``kernels/markers.py``), so the
+trace can put the graph's kernels down to a stage.  Its frames are the
+plain graph's, bit for bit.  Replays made with the profiler off, or
+inside ``spans.unmarked()``, run the plain graph only.
 """
 
 from __future__ import annotations
@@ -46,9 +55,20 @@ import torch
 from joshupscale_torch import DeviceLike, resolve_device
 from joshupscale_torch.kernels import launch_counts
 from joshupscale_torch.kernels.display import d2s_display_u8
+from joshupscale_torch.kernels.markers import MARKERS, stage_end
+from joshupscale_torch.models.common import (
+    STAGE_MARKS,
+    WHOLE_FRAME,
+    WholeFrame,
+)
 from joshupscale_torch.models.inference import InferenceModel
+from joshupscale_torch.runtime.spans import marking, span
 
 WARMUP_STEPS = 3  # eager frames before the capture (torch's own default)
+BUILD_STEPS = WARMUP_STEPS + 2
+"""Steps through the kernel wrappers that an engine's construction on the
+card makes: the eager warm-up, the plain and the marked graph's
+capture."""
 
 
 def clone_state(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -92,11 +112,12 @@ def commit_state(state: Dict[str, Any], new_state: Dict[str, Any]) -> None:
 
 
 def capture_graph(device: torch.device, warm_up: Callable[[], Any],
-                  body: Callable[[], Any]):
+                  body: Callable[[], Any], pool=None):
     """A CUDA graph of ``body()`` on ``device``: ``warm_up()`` runs
     ``WARMUP_STEPS`` times eagerly on a side stream first (each kernel's
     one-time host set-up, the ops' constant caches), then ``body()`` is
-    captured.  Returns ``(graph, body's result, kernel launches recorded
+    captured (into the memory pool ``pool``, a graph's ``pool()``, if
+    given).  Returns ``(graph, body's result, kernel launches recorded
     into the graph by wrapper name)``; a failed capture raises."""
     with torch.cuda.device(device):
         main = torch.cuda.current_stream()
@@ -108,19 +129,20 @@ def capture_graph(device: torch.device, warm_up: Callable[[], Any],
         main.wait_stream(side)
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.inference_mode(), torch.cuda.graph(graph):
+        with torch.inference_mode(), torch.cuda.graph(graph, pool=pool):
             result = body()
         after = launch_counts()
     return graph, result, {k: after[k] - before[k] for k in after}
 
 
 def run_step(model: InferenceModel, params, frame: torch.Tensor,
-             state: Dict[str, Any]) -> torch.Tensor:
-    """One eager recurrent step: ``model.apply`` on serving params, the
-    new state committed into ``state`` in place; returns the step's
-    display tensor (s2d with deferred display, else the u8 frame, or the
-    float frame with ``skip_processing``)."""
-    outputs, new_state = model.apply(params, frame, state)
+             state: Dict[str, Any], ops: WholeFrame = WHOLE_FRAME
+             ) -> torch.Tensor:
+    """One eager recurrent step: ``model.apply`` on serving params (with
+    the layer rules ``ops``), the new state committed into ``state`` in
+    place; returns the step's display tensor (s2d with deferred display,
+    else the u8 frame, or the float frame with ``skip_processing``)."""
+    outputs, new_state = model.apply(params, frame, state, ops)
     commit_state(state, new_state)
     return select_output(model, outputs)
 
@@ -207,24 +229,28 @@ class ServingIO:
         ``max_inflight`` frames are in flight: past that the call waits
         for the oldest.
         """
-        out = self._serve(self._as_input(frame))
-        if self._graph is not None:
-            out = out.clone()  # the graph's buffer: the next replay reuses it
-        self._pending.append(self._record())
-        while len(self._pending) > self._max_inflight:
-            self._wait(self._pending.popleft())
-        return out
+        with span("engine.process"):
+            out = self._serve(self._as_input(frame))
+            if self._graph is not None:
+                # the graph's buffer: the next replay reuses it
+                out = out.clone()
+            self._pending.append(self._record())
+            while len(self._pending) > self._max_inflight:
+                self._wait(self._pending.popleft())
+            return out
 
     def process(self, frame: np.ndarray) -> np.ndarray:
         """Blocking single-frame upscale: (H, W, 3) or (N, H, W, 3) u8."""
-        start = time.perf_counter()
-        squeeze = np.ndim(frame) == 3
-        result = self._serve(self._as_input(frame)).cpu().numpy()
-        if squeeze:
-            result = result[0]
-        self.frames_processed += 1
-        self.total_process_seconds += time.perf_counter() - start
-        return result
+        with span("engine.process"):
+            start = time.perf_counter()
+            out = self._serve(self._as_input(frame))
+            with span("engine.readback"):
+                result = out.cpu().numpy()
+                if np.ndim(frame) == 3:
+                    result = result[0]
+            self.frames_processed += 1
+            self.total_process_seconds += time.perf_counter() - start
+            return result
 
     @property
     def avg_frame_seconds(self) -> float:
@@ -268,25 +294,33 @@ class ServingIO:
         return result[:, 0] if squeeze else result
 
     def _as_input(self, frame: np.ndarray) -> torch.Tensor:
+        if self._graph is None:
+            with span("engine.stage_copy"):
+                return torch.tensor(self._checked(frame),
+                                    device=self._in_device)
+        # Through the next pinned staging buffer into the graph's input
+        # buffer, without blocking the host.
+        buf, copied = self._staging[self._slot]
+        self._slot = (self._slot + 1) % len(self._staging)
+        with span("engine.stage_wait"):
+            copied.synchronize()
+        with span("engine.stage_copy"):
+            buf.numpy()[...] = self._checked(frame)
+        with span("engine.h2d"), torch.cuda.device(self._in_device):
+            self._before_input()
+            self._input.copy_(buf, non_blocking=True)
+            copied.record()
+        return self._input
+
+    def _checked(self, frame: np.ndarray) -> np.ndarray:
+        """``frame`` as an (N, H, W, 3) array; raises on another shape."""
         frame = np.asarray(frame)
         if frame.ndim == 3:
             frame = frame[None]
         if frame.shape != self.input_shape:
             raise ValueError(f"Invalid frame shape {frame.shape}; expected "
                              f"{self.input_shape}")
-        if self._graph is None:
-            return torch.tensor(frame, device=self._in_device)
-        # Through the next pinned staging buffer into the graph's input
-        # buffer, without blocking the host.
-        buf, copied = self._staging[self._slot]
-        self._slot = (self._slot + 1) % len(self._staging)
-        copied.synchronize()
-        buf.numpy()[...] = frame
-        with torch.cuda.device(self._in_device):
-            self._before_input()
-            self._input.copy_(buf, non_blocking=True)
-            copied.record()
-        return self._input
+        return frame
 
     def _record(self):
         """An event after the work enqueued so far (None on the CPU,
@@ -336,23 +370,55 @@ class Engine(ServingIO):
     def _capture(self) -> None:
         self._make_input()
         scratch = clone_state(self.state)
-
-        def frame(state):
-            out = run_step(self.model, self.params, self._input, state)
-            return out, self.display(out)
-
         self._graph, (self._out, self._frame), self.graph_launches = \
-            capture_graph(self.device, lambda: frame(scratch),
-                          lambda: frame(self.state))
+            capture_graph(self.device, lambda: self._frame_step(scratch),
+                          lambda: self._frame_step(self.state))
+        self._capture_marked()
 
-    def _replay(self, frame: torch.Tensor) -> None:
+    def _frame_step(self, state, ops: WholeFrame = WHOLE_FRAME):
+        out = run_step(self.model, self.params, self._input, state, ops)
+        return out, self.display(out)
+
+    def _capture_marked(self) -> None:
+        """The marked frame graph: the same step with a stage marker at
+        each stage's end (``STAGE_MARKS``), on the same input buffer and
+        state, in the plain graph's memory pool (the two never run at
+        once, and each one's outputs are valid only until the next
+        step).  Its warm-up launches only the markers (building them):
+        everything else was warmed for the plain graph.  Raises unless
+        it records the plain graph's kernel launches.
+
+        It is captured with the plain graph, before any profiler session
+        can start: a graph instantiated while the profiler's CUPTI is
+        attached runs its copy and memset nodes as copies and memsets,
+        where one instantiated before runs them as kernels (on an H100,
+        26 µs a frame of the quality step), so a marked graph captured
+        later would not trace as the plain graph runs."""
+        graph, outs, launches = capture_graph(
+            self.device,
+            lambda: [stage_end(i, self._input) for i in range(len(MARKERS))],
+            lambda: self._frame_step(self.state, STAGE_MARKS),
+            pool=self._graph.pool())
+        if launches != self.graph_launches:
+            raise RuntimeError(f"the marked frame graph recorded {launches} "
+                               f"kernel launches, the plain one "
+                               f"{self.graph_launches}")
+        self._marked = (graph,) + outs
+
+    def _replay(self, frame: torch.Tensor):
+        """Replay the frame graph on ``frame`` (the marked graph while
+        ``spans.marking()``): its (step output, display frame)
+        buffers."""
         if frame is not self._input:
             if tuple(frame.shape) != self.input_shape:
                 raise ValueError(f"Invalid frame shape {tuple(frame.shape)}; "
                                  f"expected {self.input_shape}")
             self._input.copy_(frame)
+        graph, out, shown = self._marked if marking() else (
+            self._graph, self._out, self._frame)
         with torch.cuda.device(self.device):
-            self._graph.replay()
+            graph.replay()
+        return out, shown
 
     # -- streaming ---------------------------------------------------------
 
@@ -360,9 +426,10 @@ class Engine(ServingIO):
         """Restore the initial recurrent state (new stream / seek), in
         the engine's own buffers: ``init_state``'s values (zeros, or u8
         127 for a u8 state)."""
-        self._drain()
-        copy_state(self.state, self.model.init_state(self.batch_size,
-                                                     device=self.device))
+        with span("engine.reset"):
+            self._drain()
+            copy_state(self.state, self.model.init_state(
+                self.batch_size, device=self.device))
 
     def step(self, frame: torch.Tensor) -> torch.Tensor:
         """One recurrent step on a device frame (N, H, W, 3); returns the
@@ -373,11 +440,14 @@ class Engine(ServingIO):
         returns the graph's output buffer: it holds this step's output
         only until the next step or frame of the engine overwrites it.
         """
-        if self._graph is None:
-            with torch.inference_mode():
-                return run_step(self.model, self.params, frame, self.state)
-        self._replay(frame)
-        return self._out
+        with span("engine.replay"):
+            if self._graph is None:
+                return self._eager(frame)
+            return self._replay(frame)[0]
+
+    def _eager(self, frame: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return run_step(self.model, self.params, frame, self.state)
 
     def display(self, out: torch.Tensor) -> torch.Tensor:
         """The display frame(s) of step output(s): d2s+u8 when deferred."""
@@ -386,10 +456,10 @@ class Engine(ServingIO):
         return out
 
     def _serve(self, frame: torch.Tensor) -> torch.Tensor:
-        if self._graph is None:
-            return self.display(self.step(frame))
-        self._replay(frame)
-        return self._frame
+        with span("engine.replay"):
+            if self._graph is None:
+                return self.display(self._eager(frame))
+            return self._replay(frame)[1]
 
     # -- profiling ---------------------------------------------------------
 

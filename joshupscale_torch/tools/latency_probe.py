@@ -131,7 +131,7 @@ def main(argv=None) -> int:
     from joshupscale_torch.kernels.display import d2s_display_u8
     from joshupscale_torch.kernels.resblock import resblock_conv3x3
     from joshupscale_torch.models.registry import create_models
-    from joshupscale_torch.runtime.engine import WARMUP_STEPS, Engine
+    from joshupscale_torch.runtime.engine import BUILD_STEPS, Engine
     from joshupscale_torch.tools.profile_step import (
         expected_launches,
         seeded_params,
@@ -173,9 +173,9 @@ def main(argv=None) -> int:
         got = (counts["resblock_conv3x3"], counts["d2s_display_u8"],
                engine.graph_launches["resblock_conv3x3"],
                engine.graph_launches["d2s_display_u8"])
-        want = ((WARMUP_STEPS + 1) * k1, (WARMUP_STEPS + 1) * k2, k1, k2)
+        want = (BUILD_STEPS * k1, BUILD_STEPS * k2, k1, k2)
         print(f"latency_probe: {args.tier} engine built: K1 / K2 launches "
-              f"{got[0]} / {got[1]} (warm-up and capture), {got[2]} + "
+              f"{got[0]} / {got[1]} (warm-up and captures), {got[2]} + "
               f"{got[3]} in the frame graph (the tier: {k1} + {k2})")
         if got != want:
             print(f"latency_probe: launches {got}, not {want}",

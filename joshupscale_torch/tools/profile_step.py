@@ -36,6 +36,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
+from joshupscale_torch.runtime.spans import unmarked
 from joshupscale_torch.tools.latency_probe import QUALITY_CONFIG
 from joshupscale_torch.tools.timing import busy_parts, tool_device, where
 
@@ -157,13 +158,16 @@ def replay_kernels(engine, dev_frame, n=3, trace_path=None):
     """The device events of ``n`` replayed steps under ``torch.profiler``
     (the CUDA graph's kernels, traced one by one; the trace is written
     to ``trace_path`` if given), warmed up inside the session
-    (``warm_session``), and K1's and K2's kernels per replay."""
+    (``warm_session``), and K1's and K2's kernels per replay.  The
+    replays run the graph that the engine serves, not its marked one
+    (``runtime.spans.unmarked``)."""
     cpu = engine.device.type == "cpu"
     for _ in range(2):
         engine.step(dev_frame)
-    prof, events = profiled(
-        warm_session(lambda: engine.step(dev_frame), n, cpu), trace_path,
-        cpu)
+    with unmarked():
+        prof, events = profiled(
+            warm_session(lambda: engine.step(dev_frame), n, cpu),
+            trace_path, cpu)
     events = after_gap(events)
     groups = [kernel_group(e["name"]) for e in events]
     per = (groups.count(K1) / n, groups.count(K2) / n)

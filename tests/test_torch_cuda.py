@@ -1248,3 +1248,145 @@ def test_mesh_step_on_shared_card_matches_one_process(cuda, trainer):
         assert res["loss_rel"] <= 2e-3, res
     else:
         assert res["grad_rel"] <= 1e-4 and res["loss_rel"] <= 1e-5, res
+
+
+def _profiled(fn):
+    """``fn()`` under a ``torch.profiler`` session with the card's
+    activities: the session's records as (name, start, end, on_card)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(),
+             e.device_type() != DeviceType.CPU)
+            for e in prof.profiler.kineto_results.events()]
+
+
+@pytest.mark.parametrize("arch", ["quality", "ps2"])
+def test_marked_graph_frames_equal_plain_graph(gen, cuda, arch):
+    """Frames replayed while a profiler session is active (the marked
+    frame graph, captured with the plain one) equal an unprofiled
+    engine's (the plain graph) bit for bit, over 6 frames with a
+    ``reset()`` after the third, profiled and unprofiled frames taking
+    turns on the one recurrent state."""
+    from joshupscale_torch.kernels.markers import stage_end
+
+    config = (_quality_config("bfloat16") if arch == "quality"
+              else _ps2_config("bfloat16"))
+    built = create_models(config, seed=6)["inference"]
+    m = built.obj
+    frames = gen.integers(0, 256, (6, m.frame_height, m.frame_width, 3)
+                          ).astype(np.uint8)
+    plain = Engine(m, built.params)
+    marked = Engine(m, built.params)
+    want, got = [], []
+    for i, f in enumerate(frames):
+        if i == 3:
+            plain.reset()
+            marked.reset()
+        want.append(plain.process(f))
+        if i % 2 == 0:
+            _profiled(lambda: got.append(marked.process(f)))
+        else:
+            got.append(marked.process(f))
+    assert stage_end.launches > 0
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+
+
+@pytest.mark.parametrize("tier,k1", [("inference_quality", 68),
+                                     ("inference_ps2_style", 48)])
+def test_profiled_replays_hold_the_stage_markers(gen, cuda, tier, k1):
+    """The OBS quality and PS2-style tiers (their nets, at 32 x 48):
+    with the profiler off the engine replays the plain graph only (the
+    graph's K1 and K2 launches as always, no marker launched, no marked
+    graph); a profiled stretch holds, inside each ``engine.process``
+    span, the staging, input-copy, replay and readback spans in order
+    and exactly the three markers in stage order, with the tier's K1
+    count and one K2 a replay; no span is mirrored onto the card's
+    timeline (they are no user annotations)."""
+    from pathlib import Path
+
+    from joshupscale_torch.export.package import load_model_config
+    from joshupscale_torch.kernels.markers import MARKERS, stage_end
+
+    config = load_model_config(str(Path(__file__).resolve().parent.parent
+                                   / "configs" / f"{tier}.yaml"))
+    config["inference"] = dict(config["inference"], frame_height=32,
+                               frame_width=48)
+    built = create_models(config, seed=7)["inference"]
+    engine = Engine(built.obj, built.params)
+    assert engine.graph_launches == _graph_launches(k1, 1)
+    frames = gen.integers(0, 256, (5, 32, 48, 3)).astype(np.uint8)
+    before = stage_end.launches
+    for f in frames[:2]:
+        engine.process(f)
+    assert stage_end.launches == before
+
+    def stretch():
+        import time
+
+        engine.process(frames[2])
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for f in frames[3:]:
+            engine.process(f)
+
+    records = _profiled(stretch)
+    calls = sorted((r for r in records
+                    if r[0] == "engine.process" and not r[3]),
+                   key=lambda r: r[1])[1:]
+    assert len(calls) == 2
+    spans = ["engine.stage_wait", "engine.stage_copy", "engine.h2d",
+             "engine.replay", "engine.readback"]
+    for _, start, end, _ in calls:
+        inside = sorted((r for r in records if start <= r[1] < end),
+                        key=lambda r: r[1])
+        host = [r[0] for r in inside
+                if not r[3] and r[0].startswith("engine.")]
+        assert host == ["engine.process"] + spans
+        kernels = [r[0] for r in inside if r[3]]
+        assert not [k for k in kernels if k.startswith("engine.")]
+        assert [k for k in kernels if k in MARKERS] == list(MARKERS)
+        assert sum("conv3x3" in k for k in kernels) == k1
+        assert sum("d2s_display" in k for k in kernels) == 1
+
+
+def test_replay_kernels_profiles_the_served_graph(gen, cuda):
+    """``tools/profile_step.replay_kernels``, on which the kernel-count
+    checks and the device-time profiles of a frame graph rest, profiles
+    the graph that the engine serves (``spans.unmarked``): the OBS
+    quality tier's 68 K1 and one K2 a replay and no marker; a profiled
+    ``process`` after it replays the marked graph."""
+    from pathlib import Path
+
+    from joshupscale_torch.export.package import load_model_config
+    from joshupscale_torch.kernels.markers import MARKERS
+    from joshupscale_torch.tools.profile_step import replay_kernels
+
+    config = load_model_config(str(Path(__file__).resolve().parent.parent
+                                   / "configs" / "inference_quality.yaml"))
+    config["inference"] = dict(config["inference"], frame_height=32,
+                               frame_width=48)
+    built = create_models(config, seed=8)["inference"]
+    engine = Engine(built.obj, built.params)
+    frames = gen.integers(0, 256, (2, 32, 48, 3)).astype(np.uint8)
+    _, events, per = replay_kernels(
+        engine, torch.from_numpy(frames[0][None]).to(cuda))
+    assert per == (68, 1)
+    assert not [e for e in events if e["name"] in MARKERS]
+
+    def stretch():
+        import time
+
+        engine.process(frames[1])
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        engine.process(frames[0])
+
+    records = sorted(_profiled(stretch), key=lambda r: r[1])
+    assert [r[0] for r in records if r[3] and r[0] in MARKERS][-3:] == list(
+        MARKERS)
