@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from ``joshupscale_torch/csrc`` and
 prints each kernel's registers and spills (``ptxas -v``), holds K1 (C =
-32, 48, 64; full frame at each, and at N = 2 and 4) and K2 (full
-frame at N = 1, 2 and 4) against their plain PyTorch versions on the
-card, then drives every serving path through
-``Engine.process`` with seeded random weights at 270x480 -> 1080x1920:
-the quality tier (flow-resnet 64x10 + generator-resnet 64x24, bf16,
-68 K1 + 1 K2 launches a step), the PS2 tiers (flow autoencoder,
+32, 48, 64; full frame at each, and at N = 2 and 4), K2 (full
+frame at N = 1, 2 and 4) and K3 (the s2d warp called directly: bf16,
+u8 and f32 images, bf16 and f32 flows, full frame at N = 1 and 2)
+against their plain PyTorch versions on the card, then drives every
+serving path through ``Engine.process`` with seeded random weights at
+270x480 -> 1080x1920: the quality tier (flow-resnet 64x10 +
+generator-resnet 64x24, bf16, 68 K1 + 1 K2 launches a step, and one K3
+on every s2d path with a flow net), the PS2 tiers (flow autoencoder,
 272x480 padding, brightness; generator 64x24: 48 K1 + 1 K2, generator
 48x12: 24 K1 + 1 K2) and the serving options on the PS2-fast
 architecture (u8 state, moving average global and windowed,
@@ -117,10 +119,10 @@ device time (CUDA events without the profiler, and the trace's busy
 time).  The tools
 phase (``phase_tools``, after the GAN phase) runs the measurement tools
 no other phase runs: ``latency_probe`` over 200 quality frames (device
-and ``Engine.process`` p50 / p90 / p99), ``serving_check``,
-``gather_relayout_probe`` at 270x480 and, on the GAN phase's bf16
-setup, ``fit_cost_probe`` A, B and G, ``fit_overlap_bench``'s lag 0 and
-1 and ``train_step_bench``'s timed rounds; ``pipeline_probe`` times
+and ``Engine.process`` p50 / p90 / p99), ``serving_check`` and, on the
+GAN phase's bf16 setup, ``fit_cost_probe`` A, B and G,
+``fit_overlap_bench``'s lag 0 and 1 and ``train_step_bench``'s timed
+rounds; ``pipeline_probe`` times
 ``PipelinedEngine``'s two stage graphs in the parallel phase.  The
 conv probe (``joshupscale_torch.tools.conv_probe.run``)
 holds P1 and P2 against their plain versions at full shape (all five
@@ -295,6 +297,84 @@ def phase_k2(torch, rng, device):
     return float(worst)
 
 
+def k3_bound_ms(n, h, w, image_bytes, flow_bytes) -> float:
+    """K3's byte bound for an image of ``image_bytes`` and a flow of
+    ``flow_bytes`` a value: the s2d flow and image read once (the
+    corners' re-reads hit L2), the result written once, float32 for a
+    float32 image, else bfloat16."""
+    out_bytes = 4 if image_bytes == 4 else 2
+    return (n * h * w * (32 * flow_bytes + 48 * (image_bytes + out_bytes))
+            / PEAK_BYTES_PER_S * 1e3)
+
+
+def phase_k3(torch, rng, device):
+    """K3 (``kernels.warp.warp_s2d``, called directly) vs the plain s2d
+    warp, bit-exact: at (1, H, W) under a pan of a few LR pixels (the
+    cells' motion) the cells' bf16 image and bf16 flow, the u8-state
+    tiers' u8 image, the f32 tiers' f32 image and flow and a bf16 image
+    under an f32 flow; at N = 2 flows past every edge.  Every call must
+    move ``launches`` by one.  K3 and the plain ops are then timed on each
+    full-frame case's own inputs (CUDA events, back to back) beside the
+    byte bound of their types.  Returns the largest |got - ref| (0 when
+    they agree) and the times by case."""
+    from joshupscale_torch.kernels.warp import warp_s2d
+    from joshupscale_torch.ops.warp import dense_image_warp_s2d_plain
+    from joshupscale_torch.tools.timing import cuda_time_ms
+
+    bf16, f32, u8 = torch.bfloat16, torch.float32, torch.uint8
+
+    def operands(n, image_dtype, flow_dtype, motion):
+        if image_dtype == u8:
+            image = torch.from_numpy(
+                rng.integers(0, 256, (n, H, W, 48)).astype(np.uint8))
+        else:
+            image = torch.from_numpy((rng.standard_normal(
+                (n, H, W, 48)) * 0.25).astype(np.float32)).to(image_dtype)
+        if motion == "pan":
+            flow = (rng.standard_normal((n, H, W, 32)) * 2
+                    + np.tile(rng.standard_normal(2) * 8, 16))
+        else:
+            reach = np.tile([H * 4 * 1.5, W * 4 * 1.5], 16)
+            flow = (rng.random((n, H, W, 32)) * 2 - 1) * reach
+        return (image.to(device), torch.from_numpy(
+            flow.astype(np.float32)).to(device, flow_dtype))
+
+    cases = [("bf16", 1, bf16, bf16, "pan"), ("u8", 1, u8, bf16, "pan"),
+             ("f32", 1, f32, f32, "pan"),
+             ("bf16, f32 flow", 1, bf16, f32, "pan"),
+             ("bf16 N=2", 2, bf16, bf16, "edges"),
+             ("u8 N=2", 2, u8, f32, "edges"),
+             ("f32 N=2", 2, f32, bf16, "edges")]
+    worst, times = 0.0, {}
+    for name, n, image_dtype, flow_dtype, motion in cases:
+        image, flow = operands(n, image_dtype, flow_dtype, motion)
+        before = warp_s2d.launches
+        got = warp_s2d(image, flow)
+        torch.cuda.synchronize()
+        if warp_s2d.launches != before + 1:
+            raise AssertionError("K3 launch counter did not move")
+        ref = dense_image_warp_s2d_plain(image, flow)
+        err = float((got.float() - ref.float()).abs().max())
+        worst = max(worst, err)
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            n_bad = int((got.float() != ref.float()).sum())
+            raise AssertionError(f"K3 {name} {motion}: {n_bad} values differ "
+                                 f"from the plain version (max {err})")
+        log(f"K3 {name} ({n},{H},{W},48) {image_dtype}, {flow_dtype} flow, "
+            f"{motion} -> {got.dtype}: bit-exact ok")
+        if n != 1:
+            continue
+        ms = cuda_time_ms(lambda: warp_s2d(image, flow), reps=50)
+        plain = cuda_time_ms(lambda: dense_image_warp_s2d_plain(image, flow),
+                             reps=10)
+        bound = k3_bound_ms(n, H, W, image.element_size(),
+                            flow.element_size())
+        times[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound}
+        log(f"K3 {name} (1,{H},{W},48): {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"bound {bound:.4f} ms (bytes)")
+    return worst, times
+
+
 def serving_config(flow: dict, gen_filters: int, gen_blocks: int,
                    **inference) -> dict:
     """A serving config at full frame in bf16 (the tiers' own, as in
@@ -394,11 +474,13 @@ def frames_for(t: int, seed: int) -> np.ndarray:
 
 
 def all_kernels():
-    """The four kernels' wrappers: K1, K2, P1, P2."""
+    """The five kernels' wrappers: K1, K2, P1, P2, K3."""
     from joshupscale_torch.kernels.display import d2s_display_u8
     from joshupscale_torch.kernels.probes import probe_dot, probe_patch_dot
     from joshupscale_torch.kernels.resblock import resblock_conv3x3
-    return resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot
+    from joshupscale_torch.kernels.warp import warp_s2d
+    return (resblock_conv3x3, d2s_display_u8, probe_dot, probe_patch_dot,
+            warp_s2d)
 
 
 def check_replay(torch, name, engine, frames, device, n=REPLAY_FRAMES):
@@ -509,23 +591,27 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
     engine = Engine(built.obj, params, device=device)
     outs = [engine.process(f) for f in frames]
     torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
+    # K3, the s2d warp, runs once a step on every s2d path with a flow net.
+    k3_per_frame = int(built.obj.s2d_mode and not built.obj.remove_flow)
     t = len(frames)
     steps = BUILD_STEPS
     log(f"{name}: engine built ({BUILD_STEPS - 2} warm-up steps, the plain "
         f"and the marked graph captured) "
         f"and {t} frames through Engine.process (graph replays): K1 "
         f"launches={k1} ({k1 / steps:g}/step), K2 launches={k2} "
-        f"({k2 / steps:g}/step), P1/P2 launches={p1}/{p2}; in the graph: "
-        f"{engine.graph_launches}")
+        f"({k2 / steps:g}/step), K3 launches={k3} ({k3 / steps:g}/step), "
+        f"P1/P2 launches={p1}/{p2}; in the graph: {engine.graph_launches}")
     want = {"resblock_conv3x3": k1_per_frame, "d2s_display_u8": k2_per_frame,
-            "probe_dot": 0, "probe_patch_dot": 0}
-    if (k1 != k1_per_frame * steps or k2 != k2_per_frame * steps or p1 or p2
+            "probe_dot": 0, "probe_patch_dot": 0, "warp_s2d": k3_per_frame}
+    if (k1 != k1_per_frame * steps or k2 != k2_per_frame * steps
+            or k3 != k3_per_frame * steps or p1 or p2
             or engine.graph_launches != want):
-        raise AssertionError(f"{name}: expected {k1_per_frame} K1 and "
-                             f"{k2_per_frame} K2 a step, none while "
-                             f"replaying and no P1/P2; got {k1}, {k2}, {p1}, "
-                             f"{p2}, graph {engine.graph_launches}")
+        raise AssertionError(f"{name}: expected {k1_per_frame} K1, "
+                             f"{k2_per_frame} K2 and {k3_per_frame} K3 a "
+                             f"step, none while replaying and no P1/P2; got "
+                             f"{k1}, {k2}, {k3}, {p1}, {p2}, graph "
+                             f"{engine.graph_launches}")
     dev_frame = torch.from_numpy(frames[0][None]).to(device)
     for o in outs:
         if o.shape != (4 * H, 4 * W, 3) or o.dtype != np.uint8:
@@ -567,7 +653,7 @@ def drive_path(torch, name, config, seed, device, k1_per_frame,
         card_vs_cpu(label, f"frame {i}", card[i], cpu.process(frames[i]))
     check_replay(torch, name, engine, frames, device)
     log(f"{name}: phase took {time.perf_counter() - t0:.1f} s")
-    return engine, frames, k1, k2, built
+    return engine, frames, k1, k2, k3, built
 
 
 def time_frames(torch, name, engine, frames, device, n=TIMED_FRAMES):
@@ -885,11 +971,11 @@ def phase_ps2(torch, seed, device, paths):
     out = {}
     for tier in ("ps2_style", "ps2_fast"):
         k1_per_frame = 2 * PS2_LADDERS[tier][2]
-        engine, frames, k1, k2, _ = drive_path(
+        engine, frames, k1, k2, k3, _ = drive_path(
             torch, tier, ps2_config(tier), seed, device, k1_per_frame, 1)
         tf = time_frames(torch, tier, engine, frames, device, n=23)
         split = time_stages(torch, tier, engine, frames, device)
-        out[tier] = {"k1": k1, "k2": k2, "split": split, **tf}
+        out[tier] = {"k1": k1, "k2": k2, "k3": k3, "split": split, **tf}
         paths[tier] = (engine, frames, k1_per_frame, 1)
     out["k1_c48"], out["lib_ms_c48"] = time_k1(torch, device, 48)
     out["k1_c32"], out["lib_ms_c32"] = time_k1(torch, device, 32)
@@ -903,11 +989,11 @@ def phase_variants(torch, seed, device, paths):
     blocks (each engine kept in ``paths``)."""
     launches = {}
     for name, (options, k1_per_frame, k2_per_frame) in VARIANTS.items():
-        engine, frames, k1, k2, _ = drive_path(
+        engine, frames, k1, k2, k3, _ = drive_path(
             torch, f"variant {name}", ps2_config("ps2_fast", **options),
             seed, device, k1_per_frame, k2_per_frame,
             n_frames=VARIANT_FRAMES, ref_frames=VARIANT_FRAMES, cut=True)
-        launches[name] = {"K1": k1, "K2": k2}
+        launches[name] = {"K1": k1, "K2": k2, "K3": k3}
         paths[f"variant {name}"] = (engine, frames, k1_per_frame,
                                     k2_per_frame)
     return launches
@@ -955,10 +1041,10 @@ def phase_int8(torch, seed, device, paths):
     out = {}
 
     def run(name, config, transform, cut=True):
-        engine, frames, k1, k2, built = drive_path(
+        engine, frames, k1, k2, k3, built = drive_path(
             torch, name, config, seed, device, 0, 1,
             ref_frames=INT8_REF_FRAMES, transform=transform, cut=cut)
-        out[name] = {"k1": k1, "k2": k2, **time_frames(
+        out[name] = {"k1": k1, "k2": k2, "k3": k3, **time_frames(
             torch, name, engine, frames, device, n=23),
             "vs_float": int8_vs_float(torch, name, engine, built,
                                       frames[:4], device)}
@@ -1065,15 +1151,15 @@ def phase_parallel(torch, seed, device, keep):
                             for t in range(nf)])
         outs = [sharded.process(b) for b in batches[:3]]
         torch.cuda.synchronize()
-        k1, k2 = kernels[0].launches, kernels[1].launches
+        k1, k2, k3 = (kernels[i].launches for i in (0, 1, 4))
         want = {"resblock_conv3x3": K1_PER_FRAME, "d2s_display_u8": 1,
-                "probe_dot": 0, "probe_patch_dot": 0}
+                "probe_dot": 0, "probe_patch_dot": 0, "warp_s2d": 1}
         log(f"{name}: engine built and 3 steps of {s} streams: K1 "
-            f"launches={k1}, K2 launches={k2}; in the graph: "
-            f"{sharded.engines[0].graph_launches}")
-        if (k1 != K1_PER_FRAME * steps or k2 != steps
+            f"launches={k1}, K2 launches={k2}, K3 launches={k3}; in the "
+            f"graph: {sharded.engines[0].graph_launches}")
+        if (k1 != K1_PER_FRAME * steps or k2 != steps or k3 != steps
                 or sharded.engines[0].graph_launches != want):
-            raise AssertionError(f"{name}: launches {k1}, {k2}")
+            raise AssertionError(f"{name}: launches {k1}, {k2}, {k3}")
         if s == 2:
             batched = Engine(built.obj, params, batch_size=2, device=device)
             for b, o in zip(batches[:3], outs):
@@ -1099,7 +1185,7 @@ def phase_parallel(torch, seed, device, keep):
         dev_batch = torch.from_numpy(batches[0]).to(device)
         step_ms = cuda_time_ms(lambda: inner.step(dev_batch), reps=5,
                                device_only=False)
-        res[name] = {"k1": k1, "k2": k2, "ms": ms, "p80_ms": p80,
+        res[name] = {"k1": k1, "k2": k2, "k3": k3, "ms": ms, "p80_ms": p80,
                      "streams_exact": exact, "max_diff_vs_single": worst,
                      "step_ms": step_ms, "fps_total": s * 1e3 / ms,
                      "fps_per_stream": 1e3 / ms}
@@ -1117,9 +1203,10 @@ def phase_parallel(torch, seed, device, keep):
     piped = PipelinedEngine(built.obj, params, devices=(device, device))
     outs = [piped.process(f) for f in frames[:6]]
     torch.cuda.synchronize()
-    k1, k2 = kernels[0].launches, kernels[1].launches
+    k1, k2, k3 = (kernels[i].launches for i in (0, 1, 4))
     log(f"pipelined: engine built (two graphs) and 6 frames: K1 launches="
-        f"{k1}, K2 launches={k2}; in the graphs: {piped.graph_launches}")
+        f"{k1}, K2 launches={k2}, K3 launches={k3}; in the graphs: "
+        f"{piped.graph_launches}")
     flow_k1 = 2 * 10
     # no marked graph: one capture fewer than an Engine's
     if (k1 != K1_PER_FRAME * (steps - 1) + flow_k1 or k2 != steps - 1
@@ -1127,7 +1214,7 @@ def phase_parallel(torch, seed, device, keep):
             or piped.graph_launches["generator"] != {
                 "resblock_conv3x3": K1_PER_FRAME - flow_k1,
                 "d2s_display_u8": 1, "probe_dot": 0,
-                "probe_patch_dot": 0}):
+                "probe_patch_dot": 0, "warp_s2d": 1}):
         raise AssertionError(f"pipelined: launches {k1}, {k2}")
     single.reset()
     ref = np.stack([single.process(f) for f in frames[:6]])
@@ -1168,7 +1255,8 @@ def phase_parallel(torch, seed, device, keep):
         f"{stages_ms['stage_g_host_ms']:.3f} with host launch gaps); payload "
         f"{payload / 1e6:.3f} MB; transfer between cards "
         f"{pipeline_probe.ONE_CARD}")
-    res["pipelined"] = {"k1": k1, "k2": k2, "ms": lat["pipelined"],
+    res["pipelined"] = {"k1": k1, "k2": k2, "k3": k3,
+                        "ms": lat["pipelined"],
                         "engine_ms": lat["engine"],
                         "async_fps": fps["pipelined"],
                         "engine_async_fps": fps["engine"],
@@ -1413,16 +1501,20 @@ def serve_package(torch, name, package, seed, device):
     engine = create_runtime(package, device=device)
     outs = [engine.process(f) for f in frames]
     torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
     steps = BUILD_STEPS
     log(f"{name}: create_runtime + {len(frames)} frames through "
         f"Engine.process: K1 launches={k1} ({k1 / steps:g}/step), K2 "
-        f"launches={k2} ({k2 / steps:g}/step), P1/P2 {p1}/{p2}; in the "
-        f"graph: {engine.graph_launches}")
-    if (k1 != K1_PER_FRAME * steps or k2 != steps or p1 or p2
+        f"launches={k2} ({k2 / steps:g}/step), K3 launches={k3} "
+        f"({k3 / steps:g}/step), P1/P2 {p1}/{p2}; in the graph: "
+        f"{engine.graph_launches}")
+    if (k1 != K1_PER_FRAME * steps or k2 != steps or k3 != steps or p1
+            or p2
             or engine.graph_launches["resblock_conv3x3"] != K1_PER_FRAME
-            or engine.graph_launches["d2s_display_u8"] != 1):
-        raise AssertionError(f"{name}: expected 68 K1 + 1 K2 a step")
+            or engine.graph_launches["d2s_display_u8"] != 1
+            or engine.graph_launches["warp_s2d"] != 1):
+        raise AssertionError(f"{name}: expected 68 K1 + 1 K2 + 1 K3 a "
+                             f"step")
     inside = float(np.mean([((o > 0) & (o < 255)).mean() for o in outs]))
     if any(o.shape != (4 * H, 4 * W, 3) for o in outs) or inside < 0.5:
         raise AssertionError(f"{name}: bad or clipped output")
@@ -1430,7 +1522,7 @@ def serve_package(torch, name, package, seed, device):
     for i in range(2):
         card_vs_cpu(name, f"frame {i}", outs[i], cpu.process(frames[i]))
     check_replay(torch, name, engine, frames, device)
-    return (k1, k2), (engine, frames)
+    return (k1, k2, k3), (engine, frames)
 
 
 def phase_train(torch, seed, device, out_dir):
@@ -1517,9 +1609,10 @@ def phase_train(torch, seed, device, out_dir):
         res["setups"][dtype] = timed
         torch.cuda.empty_cache()
 
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
+    # K3 serves the warps that take no gradient (fit's validation).
     log(f"train: launches over fit, the card-vs-CPU step and the timed "
-        f"steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}")
+        f"steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}, K3 {k3}")
     if k1 or k2 or p1 or p2:
         raise AssertionError("train: a kernel launched in a train step")
 
@@ -1867,11 +1960,13 @@ def phase_gan(torch, seed, device, out_dir):
         epoch_callback=lambda e, st, entry: strips.append(play.predict(st)),
         log_fn=lambda m: log(f"gan fit: {m}"))
     torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
+    # K3 serves the warps that take no gradient: the discriminator's
+    # warps of the real frames, the validations, the play predictions.
     log(f"gan fit: launches over {GAN_EPOCHS * GAN_STEPS} steps, "
         f"{GAN_EPOCHS} validations and {len(strips)} play predictions: K1 "
         f"{k1} (play: {K1_PER_PLAY} a prediction, f32), K2 {k2}, P1/P2 "
-        f"{p1}/{p2}")
+        f"{p1}/{p2}, K3 {k3}")
     if (k1 != K1_PER_PLAY * len(strips) or k2 or p1 or p2
             or len(strips) != GAN_EPOCHS):
         raise AssertionError("gan: the train steps launched a kernel, or "
@@ -1936,9 +2031,9 @@ def phase_gan(torch, seed, device, out_dir):
         res[dtype] = time_gan_steps(torch, timed, dev_batch, seed, base)
         res["setups"][dtype] = timed
         torch.cuda.empty_cache()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
     log(f"gan: launches over the card-vs-CPU step, the gate-shut step and "
-        f"the timed steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}")
+        f"the timed steps: K1 {k1}, K2 {k2}, P1 {p1}, P2 {p2}, K3 {k3}")
     if k1 or k2 or p1 or p2:
         raise AssertionError("gan: a kernel launched in a train step")
 
@@ -1962,11 +2057,10 @@ def phase_tools(torch, seed, device, engine, gan_setup):
     clocks are the host's too): ``latency_probe`` over
     ``TOOL_LATENCY_FRAMES`` frames of the quality tier's ``engine`` (its
     launches were counted when it was built), ``serving_check`` on
-    ``TOOL_CHECK_FRAMES`` of them, ``gather_relayout_probe`` at 270x480,
-    and on ``phase_gan``'s bf16 setup (warm: no warm-up steps of its
-    own) ``fit_cost_probe`` A, B and G over 2 against 1 step,
-    ``fit_overlap_bench``'s lag 0 and 1 over 1 step each and one of
-    ``train_step_bench``'s timed rounds.  The other tools'
+    ``TOOL_CHECK_FRAMES`` of them, and on ``phase_gan``'s bf16 setup
+    (warm: no warm-up steps of its own) ``fit_cost_probe`` A, B and G
+    over 2 against 1 step, ``fit_overlap_bench``'s lag 0 and 1 over 1
+    step each and one of ``train_step_bench``'s timed rounds.  The other tools'
     functions run in the phases: ``pipeline_probe`` in
     ``phase_parallel``, ``profile_step`` in ``phase_profiled`` (the
     graphs' kernel counts, ``log_parts``), ``run_native`` in
@@ -1975,7 +2069,6 @@ def phase_tools(torch, seed, device, engine, gan_setup):
     from joshupscale_torch.tools import (
         fit_cost_probe,
         fit_overlap_bench,
-        gather_relayout_probe,
         latency_probe,
         serving_check,
         train_step_bench,
@@ -1996,7 +2089,6 @@ def phase_tools(torch, seed, device, engine, gan_setup):
             f"{s['p50_ms'] < latency_probe.TARGET_MS})")
     checked = serving_check.check(engine, frames[:TOOL_CHECK_FRAMES], log)
     engine.reset()
-    gather = gather_relayout_probe.run(H, W, seed, device, log)
 
     s = gan_setup
     batch, crop = TRAIN_BATCH, TRAIN_CROP
@@ -2022,7 +2114,7 @@ def phase_tools(torch, seed, device, engine, gan_setup):
         f"{rounds['peak_gib']:.2f} GiB")
     seconds = time.perf_counter() - t0
     log(f"tools: phase took {seconds:.1f} s")
-    return {"latency": lat, "serving_check": checked, "gather": gather,
+    return {"latency": lat, "serving_check": checked,
             "fit_cost": cost, "fit_lags": lags, "train_rounds": rounds,
             "seconds": seconds}
 
@@ -2148,16 +2240,16 @@ def phase_lifecycle(torch, seed, device, out_dir, checkpoint):
     t0 = time.perf_counter()
     out = life_tool("drift_1000", ["--source", big])
     torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
     steps = 3 * BUILD_STEPS
     summary = json.loads(out.strip().splitlines()[-1])
     u8 = summary["u8_state_vs_float"]
     res.update(drift_s=time.perf_counter() - t0, drift=summary,
-               launches=(k1, k2))
+               launches=(k1, k2, k3))
     log(f"lifecycle drift_1000 (T = {summary['frames']}, 270x480, quality "
         f"bf16): K1 launches {k1} ({k1 / steps:g} a warm-up or captured "
         f"step of 3 engines; the clip's graph replays are not counted), "
-        f"K2 {k2}, P1/P2 {p1}/{p2}; stream vs clip "
+        f"K2 {k2}, K3 {k3}, P1/P2 {p1}/{p2}; stream vs clip "
         f"{summary['stream_vs_clip_max_u8']}; u8 state vs float: mean "
         f"{u8['mean_u8_steps_overall']:.4f}, pooled p99 "
         f"{u8['p99_u8_steps_overall']}, p99 of frame p99s "
@@ -2298,7 +2390,9 @@ def phase_mesh(torch, seed, device, out_dir):
                 for p, ref in replay[i].items()) for i in range(len(at))]
     bounds = [max(TRAIN_GRAD_RTOL, 3 * o) for o in own]
     one_gan = mp.run_steps(None, gan, device)
-    if any(k.launches for k in kernels):
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
+    # K3 warps the GAN discriminator's real frames (no gradient to take).
+    if k1 or k2 or p1 or p2:
         raise AssertionError("mesh: a kernel launched in a train step")
     res = {"frvsr": mp.compare(one, meshed[0], replay),
            "frvsr_free": mp.compare(one, meshed[0]),
@@ -3252,13 +3346,13 @@ def phase_doors(torch, seed, device, out_dir):
     same = all(np.array_equal(loaded.process(f), engine.process(f))
                for f in frames)
     torch.cuda.synchronize()
-    k1, k2 = kernels[0].launches, kernels[1].launches
-    res["loaded_launches"] = (k1, k2)
+    k1, k2, k3 = (kernels[i].launches for i in (0, 1, 4))
+    res["loaded_launches"] = (k1, k2, k3)
     log(f"doors load_trained_params (prefix 'params' of the fit's "
         f"latest.npz) through Engine: {len(frames)} frames bit for bit with "
-        f"the package's: {same}; K1 {k1}, K2 {k2} "
-        f"({k1 / BUILD_STEPS:g} + {k2 / BUILD_STEPS:g} a "
-        f"step)")
+        f"the package's: {same}; K1 {k1}, K2 {k2}, K3 {k3} "
+        f"({k1 / BUILD_STEPS:g} + {k2 / BUILD_STEPS:g} + "
+        f"{k3 / BUILD_STEPS:g} a step)")
     if not same or (k1, k2) != (K1_PER_FRAME * BUILD_STEPS,
                                 BUILD_STEPS):
         raise AssertionError("doors: load_trained_params does not serve the "
@@ -3313,10 +3407,10 @@ def phase_conv_probe(torch, device, k1_conv_ms, conv_ms):
     res = conv_probe.run(conv_probe.VARIANTS, conv_probe.DOT_TILE, device,
                          log=log)
     torch.cuda.synchronize()
-    k1, k2, p1, p2 = (k.launches for k in kernels)
-    log(f"conv_probe path: P1 launches={p1}, P2 launches={p2}, K1/K2 "
-        f"launches={k1}/{k2}")
-    if not p1 or not p2 or k1 or k2:
+    k1, k2, p1, p2, k3 = (k.launches for k in kernels)
+    log(f"conv_probe path: P1 launches={p1}, P2 launches={p2}, K1/K2/K3 "
+        f"launches={k1}/{k2}/{k3}")
+    if not p1 or not p2 or k1 or k2 or k3:
         raise AssertionError("the conv probe path must launch P1 and P2 "
                              "and no serving kernel")
     us = lambda name: res[name]["ms"] * 1e3  # noqa: E731
@@ -3441,13 +3535,14 @@ def phase_spatial(torch, seed, device):
             spatial.reset()
             got.append(spatial.process(frames[0]))
             torch.cuda.synchronize()
-            k1, k2, p1, p2 = (k.launches for k in kernels)
+            k1, k2, p1, p2, k3 = (k.launches for k in kernels)
             n = len(got)
             log(f"{name}: rows {spatial.split.bounds} (flow net "
                 f"{getattr(spatial, 'flow_split', spatial.split).bounds}); "
                 f"{n} frames through process: K1 launches={k1} "
                 f"({k1 / n:g}/frame), K2 launches={k2} ({k2 / n:g}/frame), "
-                f"P1/P2 launches={p1}/{p2}")
+                f"K3 launches={k3} ({k3 / n:g}/frame), P1/P2 launches="
+                f"{p1}/{p2}")
             if (k1 != k1_whole * slabs * n or k2 != slabs * n or p1 or p2):
                 raise AssertionError(
                     f"{name}: expected {k1_whole * slabs} K1 and {slabs} K2 "
@@ -3484,7 +3579,8 @@ def phase_spatial(torch, seed, device):
                 f"{slabs} slabs on one card) beside Engine.process "
                 f"{en:.3f} ms (replayed graph), same frames in turns; one "
                 f"card cannot show a latency gain")
-            res[name] = {"k1": k1 // n, "k2": k2 // n, "exact": exact,
+            res[name] = {"k1": k1 // n, "k2": k2 // n, "k3": k3 // n,
+                         "exact": exact,
                          "max_diff": max(diffs), "first_diff": first,
                          "ms": sp, "engine_ms": en,
                          "rows": list(spatial.split.bounds)}
@@ -3614,13 +3710,14 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     k1_err = phase_k1(torch, rng, device)
     k2_err = phase_k2(torch, rng, device)
+    k3_err, k3_times = phase_k3(torch, rng, device)
     # Every host-clock timing runs before the first torch.profiler
     # session of the process; the engines stay alive until the profiler
     # phases.
     paths = {}
-    engine, frames, k1_launches, k2_launches, built = drive_path(
-        torch, "quality", quality_config(), args.seed, device, K1_PER_FRAME,
-        1)
+    engine, frames, k1_launches, k2_launches, k3_launches, built = (
+        drive_path(torch, "quality", quality_config(), args.seed, device,
+                   K1_PER_FRAME, 1))
     paths["quality"] = (engine, frames, K1_PER_FRAME, 1)
     times = phase_times(torch, engine, frames, device)
     runtime = phase_runtime(torch, quality_config(), engine, built, frames,
@@ -3690,15 +3787,17 @@ def main() -> int:
                                           ps2["k1_c48"]["conv_2"])
     (f1, r1, g1, _), (f2, r2, g2, gy2) = (ps2["k1_c32"]["conv_1"],
                                           ps2["k1_c32"]["conv_2"])
-    by_path = {"quality": (k1_launches, k2_launches),
-               **{t: (ps2[t]["k1"], ps2[t]["k2"])
+    # (K1, K2[, K3]) launches by path; K3 where this run counted it.
+    by_path = {"quality": (k1_launches, k2_launches, k3_launches),
+               **{t: (ps2[t]["k1"], ps2[t]["k2"], ps2[t]["k3"])
                   for t in ("ps2_style", "ps2_fast")},
-               **{f"variant {v}": (n["K1"], n["K2"])
+               **{f"variant {v}": (n["K1"], n["K2"], n["K3"])
                   for v, n in variants.items()},
-               **{name: (int8[name]["k1"], int8[name]["k2"])
+               **{name: (int8[name]["k1"], int8[name]["k2"],
+                         int8[name]["k3"])
                   for name in ("int8 quality", "int8 quality calibrated",
                                "int8 ps2_style")},
-               **{name: (par[name]["k1"], par[name]["k2"])
+               **{name: (par[name]["k1"], par[name]["k2"], par[name]["k3"])
                   for name in ("sharded x2", "sharded x4", "pipelined")},
                "trained export": train["export_launches"],
                "gan export": gan["export_launches"],
@@ -3709,7 +3808,8 @@ def main() -> int:
                   for n, t in nat["tiers"].items()},
                "gan play (one prediction, f32)": (gan["play_k1"], 0),
                "lifecycle drift_1000 (3 engines)": life["launches"],
-               **{name: (spatial[name]["k1"], spatial[name]["k2"])
+               **{name: (spatial[name]["k1"], spatial[name]["k2"],
+                         spatial[name]["k3"])
                   for name in spatial}}
     (n1, nq1, nb1, _), (n2, nq2, nb2, nby2) = (k1_n2["conv_1"],
                                                k1_n2["conv_2"])
@@ -3753,6 +3853,14 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bound,
          "bound_by": "bytes", "library_ms": None,
          "launches_by_path": {k: v[1] for k, v in by_path.items()}},
+        {"name": "warp_s2d", "route": "cuda",
+         "source": "joshupscale_torch/csrc/warp_s2d.cu",
+         "replaces": None, "launches": k3_launches, "path": "serving",
+         "max_abs_err": k3_err, **k3_times["bf16"],
+         "bound_by": "bytes", "library_ms": None,
+         "by_case": {k: v for k, v in k3_times.items() if k != "bf16"},
+         "launches_by_path": {k: v[2] for k, v in by_path.items()
+                              if len(v) > 2}},
         probe_entry("probe_dot", "joshupscale_torch/csrc/probe_dot.cu",
                     "tools/pallas_conv_probe.py:61",
                     ["dot64_resident", "dot128_resident", "dot64_stream"],
@@ -3795,7 +3903,8 @@ def main() -> int:
         f"{par['pipelined']['engine_async_fps']:.1f}) frames/s on {card}")
     for name, t in spatial.items():
         log(f"{name}: frames bit for bit with Engine {t['exact']} (u8 max "
-            f"{t['max_diff']}), {t['k1']} K1 + {t['k2']} K2 a frame, process "
+            f"{t['max_diff']}), {t['k1']} K1 + {t['k2']} K2 + {t['k3']} K3 "
+            f"a frame, process "
             f"{t['ms']:.3f} ms beside Engine.process {t['engine_ms']:.3f} ms "
             f"(one card: no latency gain can show) on {card}")
     lat, cost = tools["latency"], tools["fit_cost"]
@@ -3804,9 +3913,7 @@ def main() -> int:
         f"{lat['device']['p99_ms']:.3f} ms, Engine.process p50 / p99 "
         f"{lat['process']['p50_ms']:.3f} / {lat['process']['p99_ms']:.3f} "
         f"ms; serving_check stream vs clip max "
-        f"{tools['serving_check']['stream_vs_clip_max']}; gather variants "
-        f"warp / A / E {tools['gather']['warp_ms']:.3f} / "
-        f"{tools['gather']['A_ms']:.3f} / {tools['gather']['E_ms']:.3f} ms; "
+        f"{tools['serving_check']['stream_vs_clip_max']}; "
         f"fit_cost_probe ({TOOL_GAN_STEPS[0]} against {TOOL_GAN_STEPS[1]} "
         f"steps) " + ", ".join(
             f"{k} {v['ms_per_step']:.1f}" for k, v in cost.items())

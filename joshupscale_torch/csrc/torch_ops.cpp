@@ -1,18 +1,23 @@
-// K1 and K2 as registered torch ops: torch.ops.joshupscale.*.
+// K1, K2 and K3 as registered torch ops: torch.ops.joshupscale.*.
 //
 // One binding serves the eager wrappers (kernels/resblock.py,
-// kernels/display.py), torch.export and an AOTInductor package, in a
+// kernels/display.py, kernels/warp.py), torch.export and an AOTInductor
+// package, in a
 // Python process or in the C++ host (joshupscale_torch/native/), which
 // loads this library before it runs a CUDA package.
 //
 //   resblock_conv3x3(x, w, scale, offset, residual?, act, alpha) -> y
 //   d2s_display_u8(x) -> u8 frame
+//   warp_s2d(image, flow, row0) -> warped image (s2d form)
 //
 // The CUDA implementations check every operand (shape, dtype, device,
 // contiguity, and the 16-byte alignment TMA needs; a bad operand raises
 // ValueError, a wrong type TypeError), then call the
 // kernels' plain C entry points (csrc/resblock_conv.cu,
-// csrc/display_u8.cu) on the current stream of the operands' device.
+// csrc/display_u8.cu, csrc/warp_s2d.cu) on the current stream of the
+// operands' device.  warp_s2d takes any image layout and a strided flow:
+// it makes a contiguous image (and a 4-byte-aligned bf16 one) and a flow
+// with unit channel stride where they are not.
 // The Meta implementations give the output's shape and type, which is
 // what torch.export traces through.  A build without CUDA (a CPU-only
 // torch) registers the schemas and the Meta implementations only.
@@ -37,6 +42,10 @@ int jt_resblock_conv3x3(int dtype, const void* x, const void* w,
                         int c, int act, float alpha, void* stream);
 int jt_d2s_display_u8(int dtype, const void* x, void* out, int n, int hb,
                       int wb, void* stream);
+int jt_warp_s2d(int image_dtype, int flow_dtype, const void* image,
+                const void* flow, void* out, int n, int hb, int wb, int hq,
+                int row0, long long fs_n, long long fs_y, long long fs_x,
+                void* stream);
 const char* jt_error_string(int err);
 }
 #endif
@@ -93,6 +102,35 @@ void check_display(const at::Tensor& x) {
   dtype_code(x);
 }
 
+// warp_s2d's image: (N, Hb, Wb, 48) float32, bfloat16 or uint8; flow:
+// (N, Hq, Wb, 32) float32 or bfloat16.  Returns the image's type code
+// (0 float32, 1 bfloat16, 2 uint8).
+int check_warp(const at::Tensor& image, const at::Tensor& flow,
+               int64_t row0) {
+  TORCH_CHECK_VALUE(image.dim() == 4 && image.size(3) == 48,
+                    "warp_s2d: image must be (N, Hb, Wb, 48), got ",
+                    image.sizes());
+  TORCH_CHECK_VALUE(flow.dim() == 4 && flow.size(0) == image.size(0) &&
+                        flow.size(2) == image.size(2) && flow.size(3) == 32,
+                    "warp_s2d: flow must be (N, Hq, Wb, 32) for an image ",
+                    image.sizes(), ", got ", flow.sizes());
+  TORCH_CHECK_VALUE(row0 >= -(int64_t{1} << 28) &&
+                        row0 + flow.size(1) <= (int64_t{1} << 28),
+                    "warp_s2d: row0 out of range: ", row0);
+  TORCH_CHECK_VALUE(flow.device() == image.device(),
+                    "warp_s2d: image and flow must be on one device");
+  dtype_code(flow);
+  if (image.scalar_type() == at::kByte) return 2;
+  return dtype_code(image);
+}
+
+at::Tensor warp_empty(const at::Tensor& image, const at::Tensor& flow) {
+  const auto dtype =
+      image.scalar_type() == at::kFloat ? at::kFloat : at::kBFloat16;
+  return at::empty({image.size(0), flow.size(1), image.size(2), 48},
+                   image.options().dtype(dtype));
+}
+
 at::Tensor resblock_meta(const at::Tensor& x, const at::Tensor& w,
                          const at::Tensor& scale, const at::Tensor& offset,
                          const std::optional<at::Tensor>& residual,
@@ -106,6 +144,12 @@ at::Tensor display_meta(const at::Tensor& x) {
   check_display(x);
   return at::empty({x.size(0), 4 * x.size(1), 4 * x.size(2), 3},
                    x.options().dtype(at::kByte));
+}
+
+at::Tensor warp_meta(const at::Tensor& image, const at::Tensor& flow,
+                     int64_t row0) {
+  check_warp(image, flow, row0);
+  return warp_empty(image, flow);
 }
 
 #ifdef JOSHUPSCALE_OPS_CUDA
@@ -165,6 +209,35 @@ at::Tensor display_cuda(const at::Tensor& x) {
   return out;
 }
 
+at::Tensor warp_cuda(const at::Tensor& image_in, const at::Tensor& flow_in,
+                     int64_t row0) {
+  const int image_dtype = check_warp(image_in, flow_in, row0);
+  TORCH_CHECK_VALUE(image_in.is_cuda(), "warp_s2d: operands must be CUDA "
+                    "tensors");
+  at::Tensor image = image_in.contiguous();
+  if (image_dtype == 1 &&
+      reinterpret_cast<std::uintptr_t>(image.data_ptr()) % 4 != 0) {
+    image = at::empty_like(image, at::MemoryFormat::Contiguous);
+    image.copy_(image_in);
+  }
+  at::Tensor flow = flow_in.stride(3) == 1 ? flow_in : flow_in.contiguous();
+  c10::cuda::CUDAGuard guard(image.device());
+  at::Tensor out = warp_empty(image, flow);
+  if (out.numel() == 0) return out;
+  void* stream =
+      c10::cuda::getCurrentCUDAStream(image.device().index()).stream();
+  check_launch(
+      jt_warp_s2d(image_dtype, dtype_code(flow), image.data_ptr(),
+                  flow.data_ptr(), out.data_ptr(),
+                  static_cast<int>(image.size(0)),
+                  static_cast<int>(image.size(1)),
+                  static_cast<int>(image.size(2)),
+                  static_cast<int>(flow.size(1)), static_cast<int>(row0),
+                  flow.stride(0), flow.stride(1), flow.stride(2), stream),
+      "warp_s2d");
+  return out;
+}
+
 #endif  // JOSHUPSCALE_OPS_CUDA
 
 }  // namespace
@@ -174,16 +247,19 @@ TORCH_LIBRARY(joshupscale, m) {
       "resblock_conv3x3(Tensor x, Tensor w, Tensor scale, Tensor offset, "
       "Tensor? residual, int act, float alpha) -> Tensor");
   m.def("d2s_display_u8(Tensor x) -> Tensor");
+  m.def("warp_s2d(Tensor image, Tensor flow, int row0) -> Tensor");
 }
 
 TORCH_LIBRARY_IMPL(joshupscale, Meta, m) {
   m.impl("resblock_conv3x3", &resblock_meta);
   m.impl("d2s_display_u8", &display_meta);
+  m.impl("warp_s2d", &warp_meta);
 }
 
 #ifdef JOSHUPSCALE_OPS_CUDA
 TORCH_LIBRARY_IMPL(joshupscale, CUDA, m) {
   m.impl("resblock_conv3x3", &resblock_cuda);
   m.impl("d2s_display_u8", &display_cuda);
+  m.impl("warp_s2d", &warp_cuda);
 }
 #endif

@@ -7,10 +7,10 @@ The library name carries a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and concurrent builders never share a partial file.  All sources are compiled in parallel (one ``nvcc`` each).
 
-``csrc/torch_ops.cpp`` registers K1 and K2 as torch ops
+``csrc/torch_ops.cpp`` registers K1, K2 and K3 as torch ops
 (``torch.ops.joshupscale``); ``build_ops`` compiles it with the host
 compiler against the installed torch (its headers, libraries and C++
-ABI) and links it to the two kernels' libraries, and ``ops`` loads it.
+ABI) and links it to the three kernels' libraries, and ``ops`` loads it.
 Against a torch without CUDA it registers the schemas and the Meta
 implementations only.
 
@@ -37,7 +37,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared",
                            "-Xcompiler", "-fPIC", "-lineinfo"]
 
 OPS_SOURCE = CSRC / "torch_ops.cpp"
-OPS_KERNELS = ("resblock_conv", "display_u8")  # what the ops launch
+# what the ops launch
+OPS_KERNELS = ("resblock_conv", "display_u8", "warp_s2d")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -229,7 +230,7 @@ def ops_path() -> Path:
 def build_ops(also: Iterable[str] = ()) -> Path:
     """Build the op library if it is not up to date and return its path.
 
-    The unit compiles while ``nvcc`` builds the two kernels' libraries
+    The unit compiles while ``nvcc`` builds the kernels' libraries
     (with a CUDA torch), then links against them (``DT_NEEDED`` by name,
     found through ``$ORIGIN``).  ``also`` names more ``csrc/*.cu``
     sources for the same ``nvcc`` batch.  A failed build raises."""

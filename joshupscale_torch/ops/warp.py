@@ -23,14 +23,21 @@ reference's gradient at its bounds (``ops.image.clip``), and the s2d
 gather of a table that requires grad sums the table's gradient in
 float32 (``_SegsumGather``, the reference's ``_segsum_gather``).
 
-Plain torch ops for now (one row gather, then the bilinear blend); a
-Hopper kernel for the s2d gather + combine is queued in ROADMAP.md.
+Where each path runs: on the card, ``dense_image_warp_s2d`` without a
+gradient to take launches one hand-written kernel (K3,
+``kernels/warp.py``, ``csrc/warp_s2d.cu``), bit-exact with the plain
+torch ops of ``dense_image_warp_s2d_plain`` (one row gather of a corner
+table, then the bilinear blend), which run on the CPU, under autograd
+(training's ``dense_image_warp_via_s2d``) and for inputs the kernel
+does not take.  The pixel form ``dense_image_warp`` is plain torch ops
+everywhere.
 """
 
 from __future__ import annotations
 
 import torch
 
+from joshupscale_torch.kernels import warp as _kernel
 from joshupscale_torch.ops.image import clip
 from joshupscale_torch.ops.space_depth import depth_to_space, space_to_depth
 
@@ -112,7 +119,20 @@ def dense_image_warp(image: torch.Tensor, flow: torch.Tensor,
 
 def dense_image_warp_s2d(image_s2d: torch.Tensor, flow_s2d: torch.Tensor,
                          block: int = 4, row0: int = 0) -> torch.Tensor:
-    """Warp an s2d image by an s2d flow.
+    """Warp an s2d image by an s2d flow (arguments and result as
+    ``dense_image_warp_s2d_plain``): the kernel where it takes the
+    inputs (``kernels.warp.takes``: CUDA, block 4, an RGB float or u8
+    image, no gradient to take), else the plain torch ops; both give the
+    same values, bit for bit."""
+    if _kernel.takes(image_s2d, flow_s2d, block):
+        return _kernel.warp_s2d(image_s2d, flow_s2d, row0)
+    return dense_image_warp_s2d_plain(image_s2d, flow_s2d, block, row0)
+
+
+def dense_image_warp_s2d_plain(image_s2d: torch.Tensor,
+                               flow_s2d: torch.Tensor, block: int = 4,
+                               row0: int = 0) -> torch.Tensor:
+    """Warp an s2d image by an s2d flow, in plain torch ops.
 
     Parameters
     ----------

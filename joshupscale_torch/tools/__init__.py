@@ -37,8 +37,7 @@ ms a frame from outside the process beside the artifact's device time),
 ``profile_step`` (a replayed serving step's device ops by part),
 ``serving_check`` (full frames, stream against clip), ``latency_probe``
 (device and ``Engine.process`` p50 / p90 / p99), ``pipeline_probe``
-(``PipelinedEngine``'s two stages), ``gather_relayout_probe`` (the s2d
-warp's gather and combine in five forms), ``train_step_bench``,
+(``PipelinedEngine``'s two stages), ``train_step_bench``,
 ``profile_train_step``, ``fit_overlap_bench`` and ``fit_cost_probe``
 (train steps, their device ops and ``fit``'s host costs).
 """

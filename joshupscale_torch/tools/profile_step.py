@@ -51,6 +51,7 @@ PROFILE_SESSIONS = 3  # a profiled window's sessions, while none is traced
 # ones (``replay_kernels``): far longer than any gap inside a replay.
 REPLAY_GAP_S = 0.05
 K1, K2 = "K1 resblock_conv3x3", "K2 d2s_display_u8"
+K3 = "warp s2d (fused)"
 
 TINY = (32, 48)  # --tiny: LR frame size; the nets keep 1 res block
 
@@ -64,6 +65,8 @@ def kernel_group(name: str) -> str:
         return "inductor (fused Triton)"
     if "conv3x3" in name:
         return K1
+    if "warp_s2d" in name:
+        return K3
     if "i16832gemm" in name or "imma" in low:
         return "int8 product (_int_mm)"
     if "reduce_kernel" in name:

@@ -32,7 +32,12 @@ from joshupscale_torch.kernels.resblock import (
     resblock_conv3x3,
     resblock_conv3x3_plain,
 )
+from joshupscale_torch.kernels.warp import warp_s2d
 from joshupscale_torch.models.registry import create_models
+from joshupscale_torch.ops.warp import (
+    dense_image_warp_s2d,
+    dense_image_warp_s2d_plain,
+)
 from joshupscale_torch.runtime.engine import Engine, run_step
 
 pytestmark = pytest.mark.cuda
@@ -187,6 +192,143 @@ def test_registered_ops_match_plain(gen, cuda, c, dtype):
             ops.resblock_conv3x3(*bad)
     with pytest.raises(ValueError):
         ops.d2s_display_u8(_offset(z, 8))
+
+
+def _warp_inputs(gen, n, h, w, dtype, flow_dtype, motion, device,
+                 rows=None):
+    """An (n, h, w, 48) s2d image and an (n, rows or h, w, 32) s2d flow.
+    ``motion`` "pan": a pan of a few LR pixels plus per-pixel noise (the
+    serving traffic's); "edges": uniform flows up to 1.5 frame sizes,
+    past every edge (the clamp)."""
+    rows = rows or h
+    if dtype == torch.uint8:
+        image = torch.from_numpy(gen.integers(0, 256, (n, h, w, 48)).astype(
+            np.uint8))
+    else:
+        image = torch.from_numpy((gen.standard_normal(
+            (n, h, w, 48)) * 0.25).astype(np.float32)).to(dtype)
+    if motion == "pan":
+        flow = (gen.standard_normal((n, rows, w, 32)) * 2
+                + np.tile(gen.standard_normal(2) * 8, 16))
+    else:
+        reach = np.tile([h * 4 * 1.5, w * 4 * 1.5], 16)
+        flow = (gen.random((n, rows, w, 32)) * 2 - 1) * reach
+    return (image.to(device),
+            torch.from_numpy(flow.astype(np.float32)).to(device, flow_dtype))
+
+
+def _warp_matches_plain(image, flow, row0=0):
+    """K3 through ``dense_image_warp_s2d`` (one launch) equals the plain
+    torch ops on the card, value for value, in the same type."""
+    before = warp_s2d.launches
+    got = dense_image_warp_s2d(image, flow, row0=row0)
+    torch.cuda.synchronize()
+    assert warp_s2d.launches == before + 1
+    ref = dense_image_warp_s2d_plain(image, flow, 4, row0)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), int((got.float() != ref.float()).sum())
+
+
+_WARP_CASES = [(dt, ft, shape, motion)
+               for dt in (torch.bfloat16, torch.float32, torch.uint8)
+               for ft in (torch.bfloat16, torch.float32)
+               for shape, motion in (((1, 270, 480), "pan"),
+                                     ((2, 13, 21), "edges"),
+                                     ((2, 270, 480), "edges"))]
+
+
+@pytest.mark.parametrize(
+    "dtype,flow_dtype,shape,motion", _WARP_CASES,
+    ids=[f"{str(dt)[6:]}-{str(ft)[6:]}-{'x'.join(map(str, s))}-{m}"
+         for dt, ft, s, m in _WARP_CASES])
+def test_warp_kernel_equals_plain(gen, cuda, dtype, flow_dtype, shape,
+                                  motion):
+    """K3 against the plain s2d warp bit for bit: bf16, f32 and u8
+    images, bf16 and f32 flows, the serving shape at N = 1 and 2 and an
+    odd small one, a pan and flows past every edge."""
+    _warp_matches_plain(*_warp_inputs(gen, *shape, dtype, flow_dtype,
+                                      motion, cuda))
+
+
+def test_warp_kernel_on_slabs_and_strided_operands(gen, cuda):
+    """K3 on what its callers hand it: ``ps2_style``'s flow cropped from
+    the padded grid (strided rows at N = 2, and cropped columns),
+    ``SpatialEngine``'s row slabs (``row0``), a flow with a non-unit
+    channel stride, a non-contiguous image and a bf16 image that starts
+    2 bytes past a 4-byte boundary: bit for bit with the plain ops."""
+    bf16 = torch.bfloat16
+    image, flow = _warp_inputs(gen, 2, 270, 480, bf16, bf16, "pan", cuda,
+                               rows=272)
+    cropped = flow[:, 1:271]
+    assert not cropped.is_contiguous()
+    _warp_matches_plain(image, cropped)
+    for a, b in ((0, 100), (100, 170), (170, 270)):
+        _warp_matches_plain(image, cropped[:, a:b], row0=a)
+    wide, wflow = _warp_inputs(gen, 1, 30, 44, bf16, torch.float32, "edges",
+                               cuda)
+    padded = torch.nn.functional.pad(wflow, (0, 0, 2, 2, 1, 1))
+    _warp_matches_plain(wide, padded[:, 1:31, 2:46])
+    _warp_matches_plain(image, cropped.permute(0, 3, 1, 2).contiguous()
+                        .permute(0, 2, 3, 1))
+    _warp_matches_plain(image.transpose(1, 2).contiguous().transpose(1, 2),
+                        cropped)
+    _warp_matches_plain(_offset(image, 2), cropped)
+    _warp_matches_plain(_warp_inputs(gen, 2, 270, 480, torch.uint8, bf16,
+                                     "pan", cuda)[0], cropped)
+
+
+def test_warp_kernel_refuses_bad_operands(gen, cuda):
+    """The op raises on shapes and types it does not take and on mixed
+    devices, as ``ValueError`` / ``TypeError``."""
+    from joshupscale_torch.kernels import _build
+
+    image, flow = _warp_inputs(gen, 1, 8, 12, torch.bfloat16,
+                               torch.bfloat16, "pan", cuda)
+    ops = _build.ops()
+    for bad in ((image[..., :24], flow, 0), (image, flow[..., :16], 0),
+                (image, flow[:, :, :6], 0), (image, flow.cpu(), 0)):
+        with pytest.raises(ValueError):
+            ops.warp_s2d(*bad)
+    with pytest.raises(TypeError):
+        ops.warp_s2d(image.half(), flow, 0)
+
+
+_SHOT_CASES = ("inference_quality", "inference_ps2_style", "u8_state")
+
+
+@pytest.mark.parametrize("tier", _SHOT_CASES)
+def test_engine_with_warp_kernel_equals_plain_warp_over_a_shot(
+        gen, cuda, monkeypatch, tier):
+    """The OBS quality and PS2-style tiers (their nets at 30 x 44, the
+    PS2 flow cropped from its 32 x 48 padded grid) and the u8-state
+    option: an engine whose frame graph holds K3 (one launch a frame)
+    gives the frames and the state of an engine on the plain warp, bit
+    for bit, over a 120-frame shot."""
+    from pathlib import Path
+
+    from joshupscale_torch.export.package import load_model_config
+    from joshupscale_torch.models import inference
+
+    if tier == "u8_state":
+        config = _ps2_config("float32", u8_state=True)
+    else:
+        config = load_model_config(str(Path(__file__).resolve().parent.parent
+                                       / "configs" / f"{tier}.yaml"))
+        config["inference"] = dict(config["inference"], frame_height=30,
+                                   frame_width=44)
+    built = create_models(config, seed=5)["inference"]
+    engine = Engine(built.obj, built.params)
+    monkeypatch.setattr(inference, "dense_image_warp_s2d",
+                        dense_image_warp_s2d_plain)
+    plain = Engine(built.obj, built.params)
+    assert engine.graph_launches["warp_s2d"] == 1
+    assert plain.graph_launches["warp_s2d"] == 0
+    m = built.obj
+    frames = gen.integers(0, 256, (120, m.frame_height, m.frame_width, 3)
+                          ).astype(np.uint8)
+    for f in frames:
+        np.testing.assert_array_equal(engine.process(f), plain.process(f))
+    assert torch.equal(engine.state["pre_gen"], plain.state["pre_gen"])
 
 
 def test_aoti_artifact_on_card_matches_engine(gen, cuda, tmp_path):
@@ -365,9 +507,9 @@ def _quality_config(compute_dtype):
     }
 
 
-def _graph_launches(k1, k2):
+def _graph_launches(k1, k2, k3):
     return {"resblock_conv3x3": k1, "d2s_display_u8": k2, "probe_dot": 0,
-            "probe_patch_dot": 0}
+            "probe_patch_dot": 0, "warp_s2d": k3}
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -381,7 +523,7 @@ def test_engine_cuda_matches_cpu(gen, cuda, compute_dtype):
                           seed=1)["inference"]
     on_card = Engine(built.obj, built.params)
     on_cpu = Engine(built.obj, built.params, device="cpu")
-    assert on_card.graph_launches == _graph_launches(2 * 4, 1)
+    assert on_card.graph_launches == _graph_launches(2 * 4, 1, 1)
     frames = gen.integers(0, 256, (4, 24, 40, 3)).astype(np.uint8)
     before = resblock_conv3x3.launches, d2s_display_u8.launches
     for f in frames:
@@ -441,8 +583,11 @@ def test_serving_option_cuda_matches_cpu(gen, cuda, option, compute_dtype):
         assert diff.max() <= (1 if compute_dtype == "float32" else 2)
     deferred = option not in ("remove_flow", "pixel_mode")
     assert on_card._deferred == deferred
+    # K3, the s2d warp, runs on the same paths as the deferred display:
+    # s2d mode with a flow net.
     assert on_card.graph_launches == _graph_launches(
-        0 if option == "output_flow" else 2 * 2, int(deferred))
+        0 if option == "output_flow" else 2 * 2, int(deferred),
+        int(deferred))
     assert (resblock_conv3x3.launches, d2s_display_u8.launches) == before
 
 
@@ -582,7 +727,7 @@ def test_int8_engine_on_card(gen, cuda, arch, calibrated):
     frames = gen.integers(0, 256, (6, h, w, 3)).astype(np.uint8)
     params = _int8_params(built, frames[:3] if calibrated else None, cuda)
     engine = Engine(built.obj, params)
-    assert engine.graph_launches == _graph_launches(0, 1)
+    assert engine.graph_launches == _graph_launches(0, 1, 1)
     on_cpu = Engine(built.obj, params, device="cpu")
     model = engine.model
     state = model.init_state(device=cuda)
@@ -769,7 +914,7 @@ def test_sharded_and_pipelined_engines_on_card(gen, cuda):
     sharded = ShardedEngine(built.obj, built.params, devices=["cuda:0"],
                             streams_per_device=2)
     batched = Engine(built.obj, built.params, batch_size=2)
-    assert batched.graph_launches == _graph_launches(2 * 4, 1)
+    assert batched.graph_launches == _graph_launches(2 * 4, 1, 1)
     for f in frames:
         np.testing.assert_array_equal(sharded.process(f), batched.process(f))
     piped = PipelinedEngine(built.obj, built.params,
@@ -1319,7 +1464,7 @@ def test_profiled_replays_hold_the_stage_markers(gen, cuda, tier, k1):
                                frame_width=48)
     built = create_models(config, seed=7)["inference"]
     engine = Engine(built.obj, built.params)
-    assert engine.graph_launches == _graph_launches(k1, 1)
+    assert engine.graph_launches == _graph_launches(k1, 1, 1)
     frames = gen.integers(0, 256, (5, 32, 48, 3)).astype(np.uint8)
     before = stage_end.launches
     for f in frames[:2]:

@@ -1,8 +1,7 @@
 """The port's measurement tools (``joshupscale_torch/tools/``:
 ``run_native``, ``profile_step``, ``serving_check``, ``latency_probe``,
-``pipeline_probe``, ``gather_relayout_probe``, ``train_step_bench``,
-``profile_train_step``, ``fit_overlap_bench``, ``fit_cost_probe``) on the
-CPU: their tables and builders against the JAX tools' (``tools/``),
+``pipeline_probe``, ``train_step_bench``, ``profile_train_step``,
+``fit_overlap_bench``, ``fit_cost_probe``) on the CPU: their tables and builders against the JAX tools' (``tools/``),
 what they compute against the JAX package at small sizes (weights
 carried across with ``flatten_params`` -> ``from_flat_numpy``), their
 trace and clock arithmetic on handmade inputs, and their refusal to
@@ -25,13 +24,11 @@ import yaml
 import joshupscale_tpu.models as j_models
 from joshupscale_tpu.export.importer import flatten_params
 from joshupscale_tpu.models import create_models as j_create_models
-from joshupscale_tpu.ops.warp import dense_image_warp_s2d as j_warp_s2d
 from joshupscale_tpu.runtime.engine import Engine as JEngine
 from joshupscale_torch.export.weights import from_flat_numpy
 from joshupscale_torch.models.registry import create_models
 from joshupscale_torch.tools import (
     fit_cost_probe,
-    gather_relayout_probe,
     latency_probe,
     pipeline_probe,
     profile_step,
@@ -41,8 +38,8 @@ from joshupscale_torch.tools import (
 )
 
 TOOLS = ("run_native", "profile_step", "serving_check", "latency_probe",
-         "pipeline_probe", "gather_relayout_probe", "train_step_bench",
-         "profile_train_step", "fit_overlap_bench", "fit_cost_probe")
+         "pipeline_probe", "train_step_bench", "profile_train_step",
+         "fit_overlap_bench", "fit_cost_probe")
 H, W = 16, 24
 
 
@@ -185,23 +182,6 @@ def test_pipeline_stages_match_jax(rng):
         np.asarray(v).nbytes for v in j_inter.values())
 
 
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 0.02)])
-def test_gather_variants_match_the_jax_warp(dtype, atol):
-    """Variants A-E (A equal to the port's warp and the others to A, bit
-    for bit: ``outputs`` raises otherwise) against the JAX package's s2d
-    warp on the same inputs; bf16 within the warp tests' bound."""
-    image, flow = gather_relayout_probe.inputs(8, 12, 3, "cpu", dtype)
-    out = gather_relayout_probe.outputs(image, flow)
-    ref = np.asarray(j_warp_s2d(
-        jnp.asarray(image.float().numpy(),
-                    jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32),
-        jnp.asarray(flow.numpy())), np.float32)
-    for name in gather_relayout_probe.VARIANTS:
-        np.testing.assert_allclose(out[name].float().numpy(), ref,
-                                   atol=atol, rtol=0)
-
-
 def test_fit_cost_u8_staging_equals_float_staging():
     """Variant G's staging (u8 across, normalized on the device) gives the
     float staging of the same u8 values (normalized on the host in
@@ -243,6 +223,19 @@ def test_frame_profile_groups_divides_and_counts_overlap_once():
     assert prof["idle_share"] == pytest.approx(1 - 26 / 68)
     assert prof["ops"] == 4
     assert prof["top"][0] == ("resblock_conv3x3_kernel", pytest.approx(0.02))
+
+
+@pytest.mark.parametrize("name,group", [
+    ("void (anonymous namespace)::warp_s2d_bilinear<1, 1>(void const*, "
+     "void const*, void*, int, int, int, int, long long, long long, "
+     "long long, float)", "warp s2d (fused)"),
+    ("void at::native::index_elementwise_kernel<128, 4>",
+     "warp row gather (index)"),
+    ("resblock_conv3x3_kernel<64, true>", "K1 resblock_conv3x3")])
+def test_kernel_group_gives_the_fused_warp_its_own_group(name, group):
+    """K3's kernel, as the profiler names it, counts in a group of its
+    own (``profile_step.K3``), apart from the plain path's row gather."""
+    assert profile_step.kernel_group(name) == group
 
 
 def test_after_gap_keeps_the_records_after_the_idle_gap():

@@ -279,7 +279,6 @@ def test_port_imports_no_jax():
             " joshupscale_torch.tools.serving_check,"
             " joshupscale_torch.tools.latency_probe,"
             " joshupscale_torch.tools.pipeline_probe,"
-            " joshupscale_torch.tools.gather_relayout_probe,"
             " joshupscale_torch.tools.train_step_bench,"
             " joshupscale_torch.tools.profile_train_step,"
             " joshupscale_torch.tools.fit_overlap_bench,"
